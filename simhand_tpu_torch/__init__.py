@@ -4,8 +4,9 @@ The package mirrors the JAX package's module names (``core``, ``losses``,
 ``models``, ``train``) and imports neither ``jax`` nor ``simhand_tpu``.
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card it raises instead of moving to the CPU.
-The four NT-Xent kernels are hand-written CUDA C++ (``csrc/ntxent.cu``),
-built with ``nvcc`` at first use into ``build/``.
+The four NT-Xent kernels (``csrc/ntxent.cu``) and the four fused BN+ReLU
+backward kernels (``csrc/bn_epilogue.cu``) are hand-written CUDA C++, built
+with ``nvcc`` at first use into ``build/``.
 """
 from simhand_tpu_torch.device import resolve_device
 

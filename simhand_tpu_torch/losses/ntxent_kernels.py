@@ -22,6 +22,7 @@ import math
 import torch
 
 from simhand_tpu_torch import native
+from simhand_tpu_torch.device import on_cpu
 
 D = 128          # projection width the kernels are built for
 _BM, _BN = 64, 64  # row block and column tile of csrc/ntxent.cu
@@ -101,18 +102,6 @@ def weighted_grad_rows_plain(z_rows, z_cols, j_rows, j_cols, inv_rows, inv_cols,
 # wrappers
 # --------------------------------------------------------------------------
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU; raises on a mix of devices
-    or on a device that is neither the CPU nor CUDA."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cpu"
-
-
 def _check(t: torch.Tensor, name: str, shape: tuple, dtype=torch.float32):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -170,7 +159,7 @@ def _launch(name: str, inputs: list, m: int, n: int, temperature: float,
 
 def ntxent_denominator(z_rows, z_cols, row_ids, temperature: float = 0.5):
     """neg_i = sum_{j != row_ids[i]} exp(z_i . z_j / T) -> (M,) float32."""
-    if _on_cpu(z_rows, z_cols, row_ids):
+    if on_cpu(z_rows, z_cols, row_ids):
         return ntxent_denominator_plain(z_rows, z_cols, row_ids, temperature)
     m, n = _check_z(z_rows, z_cols)
     _check(row_ids, "row_ids", (m,), torch.int32)
@@ -187,7 +176,7 @@ def weighted_ntxent_denominator(z_rows, z_cols, j_rows, j_cols, row_ids,
     j_rows (M, 21, 2) or (M, 42) and j_cols likewise are interleaved 2-D
     joints; d_max and d_min are 0-d tensors on the same device.
     """
-    if _on_cpu(z_rows, z_cols, j_rows, j_cols, row_ids, d_max, d_min):
+    if on_cpu(z_rows, z_cols, j_rows, j_cols, row_ids, d_max, d_min):
         return weighted_ntxent_denominator_plain(
             z_rows, z_cols, j_rows, j_cols, row_ids, d_max, d_min, temperature)
     m, n = _check_z(z_rows, z_cols)
@@ -208,7 +197,7 @@ def ntxent_grad(z_rows, z_cols, inv_rows, inv_cols, row_ids,
                 temperature: float = 0.5):
     """G_m = sum_{j != row_ids[m]} exp(z_m . z_j / T)(inv_m + inv_j) z_j
     -> (M, 128) float32."""
-    if _on_cpu(z_rows, z_cols, inv_rows, inv_cols, row_ids):
+    if on_cpu(z_rows, z_cols, inv_rows, inv_cols, row_ids):
         return ntxent_grad_plain(z_rows, z_cols, inv_rows, inv_cols, row_ids,
                                  temperature)
     m, n = _check_z(z_rows, z_cols)
@@ -226,7 +215,7 @@ def weighted_grad_rows(z_rows, z_cols, j_rows, j_cols, inv_rows, inv_cols,
                        row_ids, d_max, d_min, temperature: float = 0.5):
     """G_m = sum_{j != row_ids[m]} exp(c_mj w_mj / T) w_mj (inv_m + inv_j) z_j
     -> (M, 128) float32, with w recomputed from the joints."""
-    if _on_cpu(z_rows, z_cols, j_rows, j_cols, inv_rows, inv_cols, row_ids,
+    if on_cpu(z_rows, z_cols, j_rows, j_cols, inv_rows, inv_cols, row_ids,
                d_max, d_min):
         return weighted_grad_rows_plain(z_rows, z_cols, j_rows, j_cols, inv_rows,
                                         inv_cols, row_ids, d_max, d_min,

@@ -1,0 +1,379 @@
+"""Fused train-mode BatchNorm + ReLU (and + residual + ReLU) with a kernel
+backward (counterpart of ``simhand_tpu/models/bn_epilogue.py``).
+
+The forward is plain PyTorch: one-pass float32 statistics
+(``var = E[x^2] - mu^2``), the per-channel affine ``y = A x + B`` with A and
+B rounded to the compute dtype, then ReLU. The backward never holds the
+ReLU mask: the four kernels recompute it in float32 from the saved ``x``
+(``A x + B (+ r) > 0``, with A and B in float32, so near 0 it may disagree
+with the forward's bf16 output: that is the reference's semantics) and
+compute, per channel c over the M = N*H*W rows,
+
+  masked_dual_reduce      sum(dy), sum(dy * xhat)         dy = g * mask
+  masked_dx               dx = P (dy - k1 - xhat k2)      xhat = C x + D
+  masked_dual_reduce_res  the same with y = A x + B + r
+  masked_dx_res           the same, and dres = dy
+
+with A = scale*inv, B = bias - mu*A, C = inv, D = -mu*inv, P = scale*inv,
+k1 = sum(dy)/M and k2 = sum(dy*xhat)/M; dscale = sum(dy*xhat) and dbias =
+sum(dy) in float32.
+
+Each wrapper takes its plain version's tensors with the channel on dim 1:
+(M, C) planes or NCHW activations with channels-last strides, whose memory
+is the row-major (M, C) plane. On CPU tensors it calls the plain version;
+on CUDA tensors it launches its kernel from ``csrc/bn_epilogue.cu`` on the
+current stream or raises, and adds one to its ``launches`` count at each
+launch and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from simhand_tpu_torch import native
+from simhand_tpu_torch.device import on_cpu
+from simhand_tpu_torch.models.layers import BatchNorm2d
+
+_TX = 32          # channels of a block in csrc/bn_epilogue.cu
+_MIN_ROWS = 64    # fewest rows a block walks
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "masked_dual_reduce": [_P] * 7 + [_I] * 5 + [_P, _P, _P],
+    "masked_dx": [_P] * 10 + [_I] * 5 + [_P, _P, _P],
+}
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The kernels' library, built at first use, with its C signatures."""
+    lib = native.load("bn_epilogue")
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    lib.bn_epilogue_error_string.argtypes = [ctypes.c_int]
+    lib.bn_epilogue_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# --------------------------------------------------------------------------
+# plain versions over (M, C) planes, float32 arithmetic in the reference's
+# order (the impl="xla" branches of bn_epilogue.py:225-235 and :357-368)
+# --------------------------------------------------------------------------
+
+def _dy_xhat(g2d, x2d, r2d, A, B, C, D):
+    x32 = x2d.float()
+    y = x32 * A + B
+    if r2d is not None:
+        y = y + r2d.float()
+    dy = torch.where(y > 0, g2d.float(), 0.0)
+    return dy, x32 * C + D
+
+
+def _dx(dy, xhat, P, k1, k2, dtype):
+    return (P * (dy - k1 - xhat * k2)).to(dtype)
+
+
+def masked_dual_reduce_plain(g2d, x2d, A, B, C, D):
+    dy, xhat = _dy_xhat(g2d, x2d, None, A, B, C, D)
+    return dy.sum(0), (dy * xhat).sum(0)
+
+
+def masked_dx_plain(g2d, x2d, A, B, C, D, P, k1, k2):
+    dy, xhat = _dy_xhat(g2d, x2d, None, A, B, C, D)
+    return _dx(dy, xhat, P, k1, k2, x2d.dtype)
+
+
+def masked_dual_reduce_res_plain(g2d, x2d, r2d, A, B, C, D):
+    dy, xhat = _dy_xhat(g2d, x2d, r2d, A, B, C, D)
+    return dy.sum(0), (dy * xhat).sum(0)
+
+
+def masked_dx_res_plain(g2d, x2d, r2d, A, B, C, D, P, k1, k2):
+    dy, xhat = _dy_xhat(g2d, x2d, r2d, A, B, C, D)
+    return _dx(dy, xhat, P, k1, k2, x2d.dtype), dy.to(r2d.dtype)
+
+
+# --------------------------------------------------------------------------
+# layout: channel on dim 1, memory channels-last
+# --------------------------------------------------------------------------
+
+def as_rows(t: torch.Tensor) -> torch.Tensor:
+    """The (M, C) plane of a tensor with its channel on dim 1: a view for a
+    channels-last tensor, a copy otherwise."""
+    return t.movedim(1, -1).reshape(-1, t.shape[1])
+
+
+def from_rows(t2d: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The (M, C) plane back in ``like``'s shape, with channels-last strides."""
+    return t2d.reshape(like.movedim(1, -1).shape).movedim(-1, 1)
+
+
+def _plane(t: torch.Tensor, name: str, like: torch.Tensor | None = None) -> torch.Tensor:
+    """The row-major (M, C) view the kernels read; raises on a dtype or a
+    layout they do not take."""
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"{name}: expected float32 or bfloat16, got {t.dtype}")
+    if like is not None and (t.dtype != like.dtype or t.shape != like.shape):
+        raise ValueError(f"{name}: expected {like.dtype} {tuple(like.shape)}, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    if t.dim() < 2 or t.numel() == 0:
+        raise ValueError(f"{name}: expected a non-empty (M, C) or NCHW tensor")
+    rows = t.movedim(1, -1)
+    if not rows.is_contiguous():
+        raise ValueError(f"{name}: must be channels-last contiguous "
+                         "(an (M, C) plane or torch.channels_last)")
+    return rows.view(-1, t.shape[1])
+
+
+def _gradient_plane(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    # a copy when autograd hands the gradient in another layout (the mean
+    # pool's backward, for one, hands an expanded tensor)
+    return _plane(g.movedim(1, -1).contiguous().movedim(-1, 1), "g", x)
+
+
+def _consts(consts, c: int):
+    for name, t in consts.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != (c,) or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous float32 ({c},) tensor")
+    return [t.data_ptr() for t in consts.values()]
+
+
+def _rows_per_block(m: int, c: int, device: torch.device) -> int:
+    """Rows a block walks: about eight blocks per SM over the whole plane,
+    each walking at least _MIN_ROWS rows."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks_y = max(1, min(math.ceil(8 * sms / math.ceil(c / _TX)),
+                          math.ceil(m / _MIN_ROWS)))
+    return math.ceil(m / blocks_y)
+
+
+def _call(name: str, *args) -> None:
+    lib = _library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        raise RuntimeError(
+            f"{name}: CUDA error {err}: {lib.bn_epilogue_error_string(err).decode()}")
+
+
+def _launch(name: str, g, x, r, consts, make_outputs):
+    """Checks the planes and constants, allocates the outputs with
+    ``make_outputs(x2d, blocks_y)`` (a list of tensors, None for an absent
+    one) and launches ``name`` on the current stream; returns the outputs."""
+    x2d = _plane(x, "x")
+    g2d = _gradient_plane(g, x)
+    r2d = None if r is None else _plane(r, "residual", x)
+    m, c = x2d.shape
+    ptrs = _consts(consts, c)
+    rows = _rows_per_block(m, c, x.device)
+    blocks_y = math.ceil(m / rows)
+    outs = make_outputs(x2d, blocks_y)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _call(name, g2d.data_ptr(), x2d.data_ptr(), 0 if r2d is None else r2d.data_ptr(),
+              *ptrs, m, c, _DTYPES[x.dtype], rows, blocks_y,
+              *[0 if t is None else t.data_ptr() for t in outs], stream)
+    return outs
+
+
+def _reduce_outputs(x2d, blocks_y):
+    """[partial, out]: (blocks_y, 2, C) partial sums, freed on return (the
+    caching allocator hands them only to work queued later on this stream,
+    which runs after both passes), and the (2, C) sums."""
+    out = x2d.new_empty((2, x2d.shape[1]), dtype=torch.float32)
+    return [out if blocks_y == 1 else out.new_empty((blocks_y, 2, x2d.shape[1])), out]
+
+
+def _launch_reduce(g, x, r, consts):
+    _, out = _launch("masked_dual_reduce", g, x, r, consts, _reduce_outputs)
+    return out[0], out[1]
+
+
+def _launch_dx(g, x, r, consts):
+    dx, dres = _launch("masked_dx", g, x, r, consts, lambda x2d, _: [
+        torch.empty_like(x2d), None if r is None else torch.empty_like(x2d)])
+    return from_rows(dx, x), None if dres is None else from_rows(dres, x)
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+
+def masked_dual_reduce(g, x, A, B, C, D):
+    """(sum dy, sum dy*xhat) per channel, float32; dy = g*[A x + B > 0]."""
+    if on_cpu(g, x, A, B, C, D):
+        return masked_dual_reduce_plain(as_rows(g), as_rows(x), A, B, C, D)
+    out = _launch_reduce(g, x, None, dict(A=A, B=B, C=C, D=D))
+    masked_dual_reduce.launches += 1
+    return out
+
+
+def masked_dx(g, x, A, B, C, D, P, k1, k2):
+    """dx = P (dy - k1 - xhat k2) in x's dtype, shape and layout."""
+    if on_cpu(g, x, A, B, C, D, P, k1, k2):
+        return from_rows(masked_dx_plain(as_rows(g), as_rows(x), A, B, C, D, P, k1, k2), x)
+    dx, _ = _launch_dx(g, x, None, dict(A=A, B=B, C=C, D=D, P=P, k1=k1, k2=k2))
+    masked_dx.launches += 1
+    return dx
+
+
+def masked_dual_reduce_res(g, x, r, A, B, C, D):
+    """masked_dual_reduce with the mask of A x + B + r > 0."""
+    if on_cpu(g, x, r, A, B, C, D):
+        return masked_dual_reduce_res_plain(as_rows(g), as_rows(x), as_rows(r),
+                                            A, B, C, D)
+    out = _launch_reduce(g, x, r, dict(A=A, B=B, C=C, D=D))
+    masked_dual_reduce_res.launches += 1
+    return out
+
+
+def masked_dx_res(g, x, r, A, B, C, D, P, k1, k2):
+    """(dx, dres = dy) with the mask of A x + B + r > 0."""
+    if on_cpu(g, x, r, A, B, C, D, P, k1, k2):
+        dx, dres = masked_dx_res_plain(as_rows(g), as_rows(x), as_rows(r),
+                                       A, B, C, D, P, k1, k2)
+        return from_rows(dx, x), from_rows(dres, r)
+    out = _launch_dx(g, x, r, dict(A=A, B=B, C=C, D=D, P=P, k1=k1, k2=k2))
+    masked_dx_res.launches += 1
+    return out
+
+
+KERNELS = (masked_dual_reduce, masked_dx, masked_dual_reduce_res, masked_dx_res)
+for _fn in KERNELS:
+    _fn.launches = 0
+
+
+def reset_launches() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the autograd Functions: plain forward, kernel (or plain) backward
+# --------------------------------------------------------------------------
+
+def _channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A (C,) vector broadcast along dim 1 of x."""
+    return v.view(1, -1, *([1] * (x.dim() - 2)))
+
+
+def batch_stats(x: torch.Tensor, eps: float):
+    """(mu, var, inv) per channel in float32, var = E[x^2] - mu^2."""
+    dims = [d for d in range(x.dim()) if d != 1]
+    x32 = x.float()
+    mu = x32.mean(dims)
+    var = (x32 * x32).mean(dims) - mu * mu
+    return mu, var, torch.rsqrt(var + eps)
+
+
+def _affine_consts(mu, inv, scale, bias):
+    """y = A x + B, xhat = C x + D (all float32)."""
+    A = scale.float() * inv
+    return A, bias.float() - mu * A, inv, -mu * inv
+
+
+def _bn_apply(x, mu, inv, scale, bias, residual=None):
+    A = inv * scale.float()
+    B = bias.float() - mu * A
+    y = x * _channel(A.to(x.dtype), x) + _channel(B.to(x.dtype), x)
+    if residual is not None:
+        y = y + residual
+    return torch.relu(y)
+
+
+class BNReluTrain(torch.autograd.Function):
+    """y = relu(bn(x)) in train mode; returns (y, mu, var). impl="kernel"
+    runs the backward through the kernel wrappers, impl="plain" through the
+    plain versions on any device."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, impl):
+        mu, var, inv = batch_stats(x, eps)
+        ctx.save_for_backward(x, mu, inv, scale, bias)
+        ctx.impl = impl
+        ctx.mark_non_differentiable(mu, var)
+        return _bn_apply(x, mu, inv, scale, bias), mu, var
+
+    @staticmethod
+    def backward(ctx, g, _dmu, _dvar):
+        x, mu, inv, scale, bias = ctx.saved_tensors
+        m = x.numel() // x.shape[1]
+        A, B, C, D = _affine_consts(mu, inv, scale, bias)
+        P = scale.float() * inv
+        if ctx.impl == "kernel":
+            sum_dy, sum_dyx = masked_dual_reduce(g, x, A, B, C, D)
+            dx = masked_dx(g, x, A, B, C, D, P, sum_dy / m, sum_dyx / m)
+        else:
+            g2d, x2d = as_rows(g), as_rows(x)
+            sum_dy, sum_dyx = masked_dual_reduce_plain(g2d, x2d, A, B, C, D)
+            dx = from_rows(masked_dx_plain(g2d, x2d, A, B, C, D, P, sum_dy / m,
+                                           sum_dyx / m), x)
+        return dx, sum_dyx.to(scale.dtype), sum_dy.to(bias.dtype), None, None
+
+
+class BNAddReluTrain(torch.autograd.Function):
+    """y = relu(bn(x) + residual) in train mode; returns (y, mu, var)."""
+
+    @staticmethod
+    def forward(ctx, x, residual, scale, bias, eps, impl):
+        mu, var, inv = batch_stats(x, eps)
+        ctx.save_for_backward(x, residual, mu, inv, scale, bias)
+        ctx.impl = impl
+        ctx.mark_non_differentiable(mu, var)
+        return _bn_apply(x, mu, inv, scale, bias, residual), mu, var
+
+    @staticmethod
+    def backward(ctx, g, _dmu, _dvar):
+        x, r, mu, inv, scale, bias = ctx.saved_tensors
+        m = x.numel() // x.shape[1]
+        A, B, C, D = _affine_consts(mu, inv, scale, bias)
+        P = scale.float() * inv
+        if ctx.impl == "kernel":
+            sum_dy, sum_dyx = masked_dual_reduce_res(g, x, r, A, B, C, D)
+            dx, dres = masked_dx_res(g, x, r, A, B, C, D, P, sum_dy / m, sum_dyx / m)
+        else:
+            g2d, x2d, r2d = as_rows(g), as_rows(x), as_rows(r)
+            sum_dy, sum_dyx = masked_dual_reduce_res_plain(g2d, x2d, r2d, A, B, C, D)
+            dx, dres = masked_dx_res_plain(g2d, x2d, r2d, A, B, C, D, P, sum_dy / m,
+                                           sum_dyx / m)
+            dx, dres = from_rows(dx, x), from_rows(dres, r)
+        return dx, dres, sum_dyx.to(scale.dtype), sum_dy.to(bias.dtype), None, None
+
+
+class BNRelu(BatchNorm2d):
+    """relu(bn(x)) or relu(bn(x) + residual) with flax BatchNorm numerics
+    and the kernel backward (``impl="kernel"``) or its plain version
+    (``impl="plain"``, the reference's ``impl="xla"``).
+
+    A BatchNorm2d, so its state-dict keys, the weight-decay mask and the
+    initialisation are those of the exact BatchNorm. The output has the
+    input's dtype; statistics are float32.
+    """
+
+    def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5,
+                 impl: str = "kernel"):
+        super().__init__(c, momentum, eps)
+        if impl not in ("kernel", "plain"):
+            raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+        self.impl = impl
+
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None):
+        if residual is not None:
+            residual = residual.to(x.dtype)
+        if not self.training:
+            inv = torch.rsqrt(self.running_var + self.eps)
+            return _bn_apply(x, self.running_mean, inv, self.weight, self.bias, residual)
+        if residual is None:
+            y, mu, var = BNReluTrain.apply(x, self.weight, self.bias, self.eps, self.impl)
+        else:
+            y, mu, var = BNAddReluTrain.apply(x, residual, self.weight, self.bias,
+                                              self.eps, self.impl)
+        with torch.no_grad():
+            m = self.flax_momentum
+            self.running_mean.mul_(m).add_(mu, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        return y

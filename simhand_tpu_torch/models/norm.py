@@ -1,0 +1,49 @@
+"""BatchNorm with statistics from a leading subset of the batch, and the
+stop-gradient BatchNorm (counterpart of ``simhand_tpu/models/norm.py``).
+
+``subsample=k`` takes the forward statistics from the first N // k images
+(at least one); the batch is shuffled, so they are a uniform subset.
+``stop_gradient_stats`` keeps gradients out of the mean and variance
+(``--bn_variant stop_grad`` of the JAX CLI). Statistics are float32 with
+the variance clamped at 0; the statistics and the affine are folded into
+one per-channel multiply-add applied in the input's dtype.
+"""
+from __future__ import annotations
+
+import torch
+
+from simhand_tpu_torch.models.layers import BatchNorm2d
+
+
+class SubsampledBatchNorm(BatchNorm2d):
+    """A BatchNorm2d (same keys, weight-decay mask and initialisation) with
+    subset statistics and optionally stopped gradients through them."""
+
+    def __init__(self, c: int, subsample: int = 4, stop_gradient_stats: bool = False,
+                 momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__(c, momentum, eps)
+        if subsample < 1:
+            raise ValueError(f"subsample must be >= 1, got {subsample}")
+        self.subsample, self.stop_gradient_stats = subsample, stop_gradient_stats
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            sub = x[:max(x.shape[0] // self.subsample, 1)] if self.subsample > 1 else x
+            sub32 = sub.float()
+            dims = [d for d in range(x.dim()) if d != 1]
+            mean = sub32.mean(dims)
+            var = torch.clamp((sub32 * sub32).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.flax_momentum
+                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+            if self.stop_gradient_stats:
+                mean, var = mean.detach(), var.detach()
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps)
+        scale = self.weight.float()
+        a = (inv * scale).to(x.dtype)
+        b = (self.bias.float() - mean * inv * scale).to(x.dtype)
+        shape = (1, -1, *([1] * (x.dim() - 2)))
+        return x * a.view(shape) + b.view(shape)

@@ -1,0 +1,349 @@
+"""The port's fused BN+ReLU epilogue (``simhand_tpu_torch.models.bn_epilogue``)
+against the JAX package on the CPU.
+
+Kernel level: the plain versions behind the four kernel wrappers against the
+Pallas kernels of ``simhand_tpu/models/bn_epilogue.py`` in interpret mode
+(as ``tests/test_bn_epilogue.py`` runs them), directly and through the
+custom VJPs, in float32 and bf16. Model level: ``ContrastiveModel(
+bn_fused="epilogue")`` against the JAX ``bn_fused="epilogue_xla"`` (the same
+math without interpret mode), weights carried over by
+``simhand_tpu_torch.convert``. Inputs are made from a seed with numpy.
+"""
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from simhand_tpu.models import ContrastiveModel as JModel
+from simhand_tpu.models import bn_epilogue as J
+from simhand_tpu.train.optimizer import wd_mask
+from simhand_tpu_torch.convert import from_flax_variables
+from simhand_tpu_torch.models import ContrastiveModel as TModel
+from simhand_tpu_torch.models import bn_epilogue as T
+from simhand_tpu_torch.models.layers import BatchNorm2d
+from simhand_tpu_torch.train.optimizer import decay_mask
+
+torch.set_num_threads(2)
+EPS = 1e-5
+SHAPES = [(64, 8, 8, 96), (256, 256), (4, 512)]
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def assert_sums_close(got, want):
+    """float32 sums of M terms in another order: rtol 1e-5 of the largest."""
+    got, want = f32(got), f32(want)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def assert_planes_close(got, want, dtype):
+    """float32: 1e-5 of the largest element (the same float32 expressions,
+    statistics summed in another order). bf16: one bf16 ulp at each
+    element's magnitude (a float32 value a few ulps apart may round to the
+    neighbouring bf16 value)."""
+    got, want = f32(got), f32(want)
+    if dtype == "f32":
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+        return
+    _, e = np.frexp(np.maximum(np.abs(got), np.abs(want)))
+    ulp = np.ldexp(np.float32(1), e - 8)          # bf16 keeps 8 significant bits
+    # where the float32 terms cancel to almost 0, their own rounding
+    # (measured <= 3e-9 of the largest element) decides the bf16 value
+    tol = np.maximum(ulp, 2.0**-20 * np.abs(want).max())
+    assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
+
+
+def nchw(a: np.ndarray, dtype) -> torch.Tensor:
+    """A numpy (..., C) array as the port's layout: channel on dim 1 with
+    channels-last strides (an (M, C) plane stays as it is)."""
+    t = torch.from_numpy(a).to(dtype)
+    return t.permute(0, 3, 1, 2) if t.dim() == 4 else t
+
+
+def nhwc(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(0, 2, 3, 1) if t.dim() == 4 else t
+
+
+def consts(rng, c):
+    """Per-channel mu, inv, scale, bias (float32) and the affine constants."""
+    mu = rng.normal(size=c).astype(np.float32) * 0.1
+    inv = rng.uniform(0.5, 2.0, size=c).astype(np.float32)
+    scale = (rng.normal(size=c) * 0.5 + 1).astype(np.float32)
+    bias = (rng.normal(size=c) * 0.1).astype(np.float32)
+    A, B, C, D = (np.asarray(v) for v in J._affine_consts(mu, inv, scale, bias))
+    return A, B, C, D, scale * inv
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_masked_kernels_match_pallas(shape, dtype):
+    """masked_dual_reduce and masked_dx on (M, C) planes."""
+    rng = np.random.default_rng(0)
+    jdt, tdt = DTYPES[dtype]
+    c = shape[-1]
+    x = rng.normal(size=shape).astype(np.float32).reshape(-1, c)
+    g = rng.normal(size=shape).astype(np.float32).reshape(-1, c)
+    A, B, C, D, P = consts(rng, c)
+    k1, k2 = (rng.normal(size=c).astype(np.float32) * 0.1 for _ in range(2))
+    jx, jg = jnp.asarray(x, jdt), jnp.asarray(g, jdt)
+    want_sums = J.masked_dual_reduce(jg, jx, A, B, C, D, interpret=True)
+    want_dx = J.masked_dx(jg, jx, A, B, C, D, P, k1, k2, jdt, interpret=True)
+    tx, tg = torch.from_numpy(x).to(tdt), torch.from_numpy(g).to(tdt)
+    tc = [torch.from_numpy(v) for v in (A, B, C, D, P, k1, k2)]
+    got_sums = T.masked_dual_reduce(tg, tx, *tc[:4])
+    got_dx = T.masked_dx(tg, tx, *tc)
+    for got, want in zip(got_sums, want_sums):
+        assert_sums_close(got, want)
+    assert got_dx.dtype == tdt
+    assert_planes_close(got_dx, want_dx, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_bn_relu_vjp_matches_pallas(shape, dtype):
+    """BNReluTrain (impl="kernel", plain versions on the CPU) against the vjp
+    of bn_relu_train(impl="pallas"); the forward output to one bf16 ulp (XLA
+    may keep bf16 products in float32 where PyTorch rounds each)."""
+    rng = np.random.default_rng(0)
+    jdt, tdt = DTYPES[dtype]
+    c = shape[-1]
+    x = rng.normal(size=shape).astype(np.float32)
+    g = rng.normal(size=shape).astype(np.float32)
+    scale = (rng.normal(size=c) * 0.5 + 1).astype(np.float32)
+    bias = (rng.normal(size=c) * 0.1).astype(np.float32)
+    y, vjp = jax.vjp(lambda x, s, b: J.bn_relu_train(x, s, b, EPS, "pallas"),
+                     jnp.asarray(x, jdt), jnp.asarray(scale), jnp.asarray(bias))
+    dx, dscale, dbias = vjp(jnp.asarray(g, jdt))
+
+    tx = nchw(x, tdt).requires_grad_()
+    ts, tb = (torch.from_numpy(v).requires_grad_() for v in (scale, bias))
+    ty, mu, var = T.BNReluTrain.apply(tx, ts, tb, EPS, "kernel")
+    tdx, tds, tdb = torch.autograd.grad(ty, (tx, ts, tb), nchw(g, tdt))
+    assert ty.dtype == tdx.dtype == tdt and tds.dtype == tdb.dtype == torch.float32
+    assert_planes_close(nhwc(ty), y, dtype)
+    assert_planes_close(nhwc(tdx), dx, dtype)
+    assert_sums_close(tds, dscale)
+    assert_sums_close(tdb, dbias)
+    _, jmu, jvar = J._fwd_impl(jnp.asarray(x, jdt), scale, bias, EPS)
+    np.testing.assert_allclose(f32(mu), f32(jmu), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(f32(var), f32(jvar), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bn_add_relu_vjp_matches_pallas(dtype):
+    """BNAddReluTrain against the vjp of bn_add_relu_train(impl="pallas"),
+    at the shape of tests/test_bn_epilogue.py; dres is dy, exact in bf16."""
+    rng = np.random.default_rng(1)
+    jdt, tdt = DTYPES[dtype]
+    shape, c = (32, 4, 4, 128), 128
+    x, r, g = (rng.normal(size=shape).astype(np.float32) for _ in range(3))
+    scale = (rng.normal(size=c) * 0.5 + 1).astype(np.float32)
+    bias = (rng.normal(size=c) * 0.1).astype(np.float32)
+    y, vjp = jax.vjp(lambda x, r, s, b: J.bn_add_relu_train(x, r, s, b, EPS, "pallas"),
+                     jnp.asarray(x, jdt), jnp.asarray(r, jdt), jnp.asarray(scale),
+                     jnp.asarray(bias))
+    dx, dr, dscale, dbias = vjp(jnp.asarray(g, jdt))
+
+    tx, tr = (nchw(v, tdt).requires_grad_() for v in (x, r))
+    ts, tb = (torch.from_numpy(v).requires_grad_() for v in (scale, bias))
+    ty, _, _ = T.BNAddReluTrain.apply(tx, tr, ts, tb, EPS, "kernel")
+    tdx, tdr, tds, tdb = torch.autograd.grad(ty, (tx, tr, ts, tb), nchw(g, tdt))
+    assert tdx.dtype == tdr.dtype == tdt
+    assert_planes_close(nhwc(ty), y, dtype)
+    assert_planes_close(nhwc(tdx), dx, dtype)
+    assert_planes_close(nhwc(tdr), dr, dtype)
+    assert_sums_close(tds, dscale)
+    assert_sums_close(tdb, dbias)
+
+
+def test_plain_impl_equals_kernel_impl_on_the_cpu():
+    """impl="plain" (bn_fused="epilogue_xla") and impl="kernel" run the same
+    plain versions on CPU tensors: equal bit for bit, with a gradient in
+    another layout than the saved activation's."""
+    rng = np.random.default_rng(2)
+    x, r = (nchw(rng.normal(size=(4, 5, 5, 24)).astype(np.float32), torch.bfloat16)
+            for _ in range(2))
+    g = torch.from_numpy(rng.normal(size=(4, 24, 5, 5)).astype(np.float32)).bfloat16()
+    scale, bias = torch.ones(24, requires_grad=True), torch.zeros(24, requires_grad=True)
+    out = []
+    for impl in ("kernel", "plain"):
+        xx, rr = x.clone().requires_grad_(), r.clone().requires_grad_()
+        y, _, _ = T.BNAddReluTrain.apply(xx, rr, scale, bias, EPS, impl)
+        out.append([y, *torch.autograd.grad(y, (xx, rr, scale, bias), g)])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# model level: ContrastiveModel(bn_fused="epilogue") against "epilogue_xla"
+# --------------------------------------------------------------------------
+
+SIDE, B = 32, 4
+
+
+def to_numpy(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def max_rel(got: torch.Tensor, want) -> float:
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got.detach().double().numpy() - want).max() / np.abs(want).max())
+
+
+@pytest.fixture(scope="module", params=["18", "50"])
+def epilogue(request):
+    """The JAX epilogue_xla model's train-mode outputs, new statistics and
+    parameter gradients of sum(proj * w), and its eval-mode outputs after
+    the statistics update; the port's model loaded from its variables."""
+    size = request.param
+    jm = JModel(resnet_size=size, bn_fused="epilogue_xla")
+    variables = jax.jit(jm.init)(jax.random.key(0), jnp.zeros((2, SIDE, SIDE, 3)))
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(B, SIDE, SIDE, 3)).astype(np.float32)
+    w = rng.normal(size=(B, 128)).astype(np.float32)
+
+    @jax.jit
+    def train(params):
+        def loss(p):
+            (emb, proj), mut = jm.apply({"params": p, "batch_stats": variables["batch_stats"]},
+                                        x, train=True, mutable=["batch_stats"])
+            return jnp.sum(proj * w), (emb, proj, mut["batch_stats"])
+        return jax.grad(loss, has_aux=True)(params)
+
+    grads, (emb, proj, stats) = train(variables["params"])
+    evaluated = jax.jit(partial(jm.apply, train=False))(
+        {"params": variables["params"], "batch_stats": stats}, x)
+    init = from_flax_variables(to_numpy(variables["params"]), to_numpy(variables["batch_stats"]))
+    model = TModel(size, bn_fused="epilogue")
+    model.load_state_dict(init, strict=True)
+    return dict(size=size, x=x, w=w, model=model, init=init, emb=emb, proj=proj,
+                stats=from_flax_variables(to_numpy(variables["params"]), to_numpy(stats)),
+                grads=from_flax_variables(to_numpy(grads), to_numpy(stats)),
+                eval=evaluated)
+
+
+# float32 train-mode tolerances, relative to the largest element, as in
+# tests/test_torch_models.py: train-mode BatchNorm at B = 4 and 32x32
+# normalises layer4 over 4 values per channel and amplifies the rounding
+# differences of XLA's and oneDNN's convolutions layer after layer
+# (measured: 5.5e-5 for ResNet-18, 9.9e-3 for ResNet-50, the same as the
+# exact BatchNorm's 3e-5 and 8e-3).
+TRAIN_RTOL = {"18": 5e-4, "50": 3e-2}
+# Each parameter gradient, relative to its norm (measured: 2.6e-4 for
+# ResNet-18; 0.234 for ResNet-50, where the exact BatchNorm's gradients
+# differ by up to 0.14 in the same comparison: the same amplification, one
+# derivative further, through the head's BatchNorm over 4 rows too). All
+# gradients together, relative to their norm: measured 1.8e-4 and 0.196.
+# The kernel-level tests above hold the backward's arithmetic tightly.
+GRAD_RTOL = {"18": 2e-3, "50": 0.5}
+GRAD_ALL_RTOL = {"18": 1e-3, "50": 0.4}
+
+
+def test_epilogue_model_is_built_of_bnrelu(epilogue):
+    """Every bn+relu site is a BNRelu (a BatchNorm2d, so the keys are
+    torchvision's), downsample BatchNorms stay exact."""
+    enc = epilogue["model"].encoder
+    fused = [n for n, m in enc.named_modules() if isinstance(m, T.BNRelu)]
+    exact = [n for n, m in enc.named_modules() if type(m) is BatchNorm2d]
+    assert all(n.endswith("downsample.1") for n in exact)
+    assert len(exact) == {"18": 3, "50": 4}[epilogue["size"]]
+    n_blocks = {"18": 8, "50": 16}[epilogue["size"]]
+    assert len(fused) == 1 + n_blocks * (2 if epilogue["size"] == "18" else 3)
+    assert all(m.impl == "kernel" for m in enc.modules() if isinstance(m, T.BNRelu))
+
+
+def test_epilogue_train_outputs_stats_and_gradients_match(epilogue):
+    size, model = epilogue["size"], epilogue["model"].train()
+    model.load_state_dict(epilogue["init"], strict=True)
+    temb, tproj = model(torch.from_numpy(epilogue["x"]))
+    assert max_rel(temb, epilogue["emb"]) < TRAIN_RTOL[size]
+    assert max_rel(tproj, epilogue["proj"]) < TRAIN_RTOL[size]
+    got = model.state_dict()
+    for key, want in epilogue["stats"].items():
+        if "running" in key:
+            assert max_rel(got[key], want.numpy()) < TRAIN_RTOL[size], key
+
+    names = [n for n, _ in model.named_parameters()]
+    loss = (tproj * torch.from_numpy(epilogue["w"])).sum()
+    grads = dict(zip(names, torch.autograd.grad(loss, list(model.parameters()))))
+    errs, norms = [], []
+    for name in names:
+        g, w = grads[name].double(), epilogue["grads"][name].double()
+        if name == "projection_head.fc1.bias":
+            # feeds a train-mode BatchNorm: its gradient is 0 up to rounding
+            # (measured 7.4e-8 of the largest gradient of fc1.weight)
+            scale = float(epilogue["grads"]["projection_head.fc1.weight"].abs().max())
+            assert float((g - w).abs().max()) <= 1e-6 * scale, name
+            continue
+        err = float((g - w).norm() / w.norm())
+        assert err <= GRAD_RTOL[size], (name, err)
+        errs.append(float((g - w).norm()) ** 2)
+        norms.append(float(w.norm()) ** 2)
+    assert (sum(errs) / sum(norms)) ** 0.5 <= GRAD_ALL_RTOL[size]
+
+
+def test_epilogue_eval_outputs_match(epilogue):
+    """After one train-mode forward updated the statistics of both models:
+    a fixed affine map per layer (measured <= 2.1e-4 of the largest output
+    for ResNet-50), tolerance as in tests/test_torch_models.py."""
+    model = epilogue["model"]
+    model.load_state_dict(epilogue["stats"], strict=True)
+    with torch.no_grad():
+        temb, tproj = model.eval()(torch.from_numpy(epilogue["x"]))
+    emb, proj = epilogue["eval"]
+    assert max_rel(temb, emb) < 2e-3
+    assert max_rel(tproj, proj) < 2e-3
+
+
+def test_epilogue_decay_mask_matches_wd_mask():
+    shapes = jax.eval_shape(JModel(resnet_size="18", bn_fused="epilogue_xla").init,
+                            jax.random.key(0), jnp.zeros((2, SIDE, SIDE, 3)))
+    params, batch_stats = (jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes[k])
+                           for k in ("params", "batch_stats"))
+    mask = jax.tree.map(lambda m, p: np.full(p.shape, float(m)), wd_mask(params), params)
+    want = {k: bool(v.flatten()[0]) for k, v in from_flax_variables(mask, batch_stats).items()
+            if "running" not in k and "num_batches" not in k}
+    model = TModel("18", bn_fused="epilogue")
+    assert dict(zip([n for n, _ in model.named_parameters()], decay_mask(model))) == want
+    assert want["encoder.layer1.0.bn2.weight"] is False
+
+
+def test_epilogue_takes_precedence_over_subsample_and_stop_grad():
+    """The reference's quirk (resnet.py:173): bn_fused="epilogue" ignores
+    bn_subsample and bn_stop_gradient_stats; downsample BatchNorms stay
+    exact, not subsampled."""
+    torch.manual_seed(0)
+    plain = TModel("18", bn_fused="epilogue")
+    quirk = TModel("18", bn_fused="epilogue", bn_subsample=2, bn_stop_gradient_stats=True)
+    quirk.load_state_dict(plain.state_dict(), strict=True)
+    assert [type(m) for m in plain.modules()] == [type(m) for m in quirk.modules()]
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(4, SIDE, SIDE, 3)).astype(np.float32))
+    outs = []
+    for model in (plain, quirk):
+        _, proj = model.train()(x)
+        outs.append([proj, *torch.autograd.grad(proj.square().sum(), list(model.parameters()))])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_bn_fused_values():
+    with pytest.raises(NotImplementedError, match="Queue 2 #9"):
+        TModel("18", bn_fused="pallas")
+    with pytest.raises(NotImplementedError, match="Queue 2 #9"):
+        TModel("18", bn_fused=True)
+    for bad in ("xla", "epilogue_pallas", None):
+        with pytest.raises(ValueError, match="bn_fused"):
+            TModel("18", bn_fused=bad)
+    with pytest.raises(ValueError, match="maxpool"):
+        TModel("18", maxpool="max")
+    fused = [m for m in TModel("18", bn_fused="epilogue_xla").modules()
+             if isinstance(m, T.BNRelu)]
+    assert len(fused) == 17 and all(m.impl == "plain" for m in fused)

@@ -1,4 +1,6 @@
-"""The CUDA NT-Xent kernels on the card, against their plain PyTorch versions.
+"""The CUDA kernels on the card (the NT-Xent kernels of ``csrc/ntxent.cu`` and
+the fused BN+ReLU backward of ``csrc/bn_epilogue.cu``), against their plain
+PyTorch versions.
 
 These tests need a CUDA card and ``nvcc``; without them they skip. They
 import no JAX, so they run where the card is, without the repository's
@@ -6,9 +8,10 @@ import no JAX, so they run where the card is, without the repository's
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu_kernels.py
 
-float32 throughout with TF32 off. Denominators are held to rtol 1e-5 (a sum
-of N positive terms in another order); gradients to 1e-5 of their largest
-element (a sum of N vectors of both signs).
+The NT-Xent kernels run in float32 with TF32 off. Denominators are held to
+rtol 1e-5 (a sum of N positive terms in another order); gradients to 1e-5
+of their largest element (a sum of N vectors of both signs). The BN
+kernels run in float32 and bf16; each test states its tolerance.
 """
 import pytest
 import torch
@@ -109,3 +112,105 @@ def test_kernel_losses_match_the_dense_losses(cuda):
             # the same terms summed in other orders, and the dense route's
             # distances divided by 21 where the kernel multiplies by 1/21
             assert float((a - c).abs().max()) <= 1e-4 * float(c.abs().max()), name
+
+
+# --------------------------------------------------------------------------
+# the fused BN+ReLU backward kernels (csrc/bn_epilogue.cu)
+# --------------------------------------------------------------------------
+
+def _bn_inputs(gen, shape, dtype):
+    """x, r, g with the channel on dim 1 and channels-last strides, the
+    affine constants of x's statistics, and P."""
+    from simhand_tpu_torch.models import bn_epilogue as E
+
+    def plane():
+        t = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        return t.contiguous(memory_format=torch.channels_last)
+
+    x, r, g = plane(), plane(), plane()
+    c = shape[1]
+    scale = 1 + 0.5 * torch.randn(c, device="cuda", generator=gen)
+    bias = 0.1 * torch.randn(c, device="cuda", generator=gen)
+    mu, _, inv = E.batch_stats(x, 1e-5)
+    return x, r, g, [*E._affine_consts(mu, inv, scale, bias)], scale * inv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(8, 96, 5, 25), (3, 100, 7, 11)], ids=["1000x96", "231x100"])
+def test_bn_epilogue_kernels_match_plain_versions(cuda, shape, dtype):
+    """Ragged M and C (no multiple of a block), and a gradient that is not
+    channels-last (the wrapper copies it). Sums to rel 1e-5 of the largest
+    (the same float32 terms added in another order); dx and dres equal bit
+    for bit (the same float32 operations, each rounded, in the same order)."""
+    from simhand_tpu_torch.models import bn_epilogue as E
+
+    x, r, g, consts, P = _bn_inputs(cuda, shape, dtype)
+    g = g.contiguous()                                    # NCHW, not channels-last
+    m = x.numel() // x.shape[1]
+    g2d, x2d, r2d = E.as_rows(g), E.as_rows(x), E.as_rows(r)
+    E.reset_launches()
+    for res in (False, True):
+        if res:
+            sums = E.masked_dual_reduce_res(g, x, r, *consts)
+            want_sums = E.masked_dual_reduce_res_plain(g2d, x2d, r2d, *consts)
+        else:
+            sums = E.masked_dual_reduce(g, x, *consts)
+            want_sums = E.masked_dual_reduce_plain(g2d, x2d, *consts)
+        for a, b in zip(sums, want_sums):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+        k = [v / m for v in want_sums]
+        if res:
+            dx, dres = E.masked_dx_res(g, x, r, *consts, P, *k)
+            want_dx, want_dres = E.masked_dx_res_plain(g2d, x2d, r2d, *consts, P, *k)
+            assert torch.equal(E.as_rows(dres), want_dres)
+        else:
+            dx = E.masked_dx(g, x, *consts, P, *k)
+            want_dx = E.masked_dx_plain(g2d, x2d, *consts, P, *k)
+        torch.cuda.synchronize()
+        assert dx.shape == x.shape and dx.dtype == dtype
+        assert dx.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(E.as_rows(dx), want_dx)
+    assert [fn.launches for fn in E.KERNELS] == [1, 1, 1, 1]
+
+
+@pytest.mark.gpu
+def test_bn_epilogue_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from simhand_tpu_torch.models import bn_epilogue as E
+
+    x, r, g, consts, _ = _bn_inputs(cuda, (2, 64, 4, 4), torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        E.masked_dual_reduce(g.half(), x.half(), *consts)
+    with pytest.raises(ValueError, match="channels-last"):
+        E.masked_dual_reduce(g, x.contiguous(), *consts)
+    with pytest.raises(ValueError, match="residual"):
+        E.masked_dual_reduce_res(g, x, r.float(), *consts)
+    with pytest.raises(ValueError, match="A"):
+        E.masked_dual_reduce(g, x, consts[0].double(), *consts[1:])
+    with pytest.raises(ValueError, match="several devices"):
+        E.masked_dual_reduce(g, x.cpu(), *consts)
+
+
+@pytest.mark.gpu
+def test_bnrelu_kernel_backward_matches_plain_backward(cuda):
+    """BNAddReluTrain, impl="kernel" against impl="plain", with the gradient
+    the mean pool hands back (an expanded, stride-0 tensor)."""
+    from simhand_tpu_torch.models import bn_epilogue as E
+
+    x, r, _, _, _ = _bn_inputs(cuda, (16, 256, 8, 8), torch.bfloat16)
+    scale = torch.ones(256, device="cuda", requires_grad=True)
+    bias = torch.zeros(256, device="cuda", requires_grad=True)
+    out = []
+    for impl in ("kernel", "plain"):
+        xx, rr = x.clone().requires_grad_(), r.clone().requires_grad_()
+        y, _, _ = E.BNAddReluTrain.apply(xx, rr, scale, bias, 1e-5, impl)
+        out.append([y, *torch.autograd.grad(y.float().mean(dim=(2, 3)).sum(),
+                                             (xx, rr, scale, bias))])
+    (y, dx, dres, ds, db), (y_, dx_, dres_, ds_, db_) = out
+    assert torch.equal(y, y_) and torch.equal(dres, dres_)      # the same forward; dres = dy
+    # the sums, and so k1 and k2, differ in their last bits: a dx element may
+    # round to the neighbouring bf16 value
+    a, b = dx.float(), dx_.float()
+    assert ((a - b).abs() <= 2.0**-7 * b.abs() + 1e-6 * b.abs().max()).all()
+    for a, b in ((ds, ds_), (db, db_)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
