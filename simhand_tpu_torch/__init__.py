@@ -4,9 +4,11 @@ The package mirrors the JAX package's module names (``core``, ``losses``,
 ``models``, ``train``) and imports neither ``jax`` nor ``simhand_tpu``.
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card it raises instead of moving to the CPU.
-The four NT-Xent kernels (``csrc/ntxent.cu``) and the four fused BN+ReLU
-backward kernels (``csrc/bn_epilogue.cu``) are hand-written CUDA C++, built
-with ``nvcc`` at first use into ``build/``.
+The four NT-Xent kernels (``csrc/ntxent.cu``), the four fused BN+ReLU
+backward kernels and the BatchNorm backward's dual reduce
+(``csrc/bn_epilogue.cu``), and the two 1x1-conv GEMMs with a statistics
+epilogue (``csrc/conv1x1.cu``) are hand-written CUDA C++, built with
+``nvcc`` at first use into ``build/``.
 """
 from simhand_tpu_torch.device import resolve_device
 

@@ -1,11 +1,14 @@
-// Fused BatchNorm + ReLU backward kernels for Hopper (sm_90a), bf16 or
-// float32 planes.
+// BatchNorm backward kernels for Hopper (sm_90a), bf16 or float32 planes:
+// the fused BatchNorm + ReLU backward, and the two reduces of the plain
+// BatchNorm backward.
 //
 // Replaces the four Pallas TPU kernels of simhand_tpu/models/bn_epilogue.py:
 //   masked_dual_reduce (RES = false) <- masked_dual_reduce / _masked_reduce_kernel
 //   masked_dual_reduce (RES = true)  <- _bn_add_relu_bwd / _dual_reduce_res_kernel
 //   masked_dx          (RES = false) <- masked_dx / _dx_kernel
 //   masked_dx          (RES = true)  <- _bn_add_relu_bwd / _dx_res_kernel
+// and the one of simhand_tpu/models/fused_bn.py:
+//   dual_reduce                      <- bn_backward_reduces / _dual_reduce_kernel
 //
 // What they compute, per channel c of the row-major (M, C) planes g, x and
 // (with RES) r, with float32 per-channel constants read from the card:
@@ -14,6 +17,8 @@
 //   xhat = C x + D
 //   reduce:  sum_rows dy, sum_rows dy * xhat            -> (2, C) float32
 //   dx:      dx = P (dy - k1 - xhat k2) in the planes' dtype; RES: dres = dy
+// dual_reduce takes no mask: dy = g and xhat = (x - mu) * inv (subtract,
+// then multiply, as fused_bn.py does), with mu and inv float32 vectors.
 // Every product and sum is a separately rounded float32 operation
 // (__fmul_rn / __fadd_rn / __fsub_rn) in the order of the plain PyTorch
 // version, so that nvcc contracts nothing into an FMA: the mask, dx and
@@ -32,7 +37,9 @@
 // its 8 row lanes walk with a stride of 8. Each thread loads its channel's
 // constants once and keeps its sums in registers. The reduce writes one
 // partial per row range; a second kernel adds the partials of each channel
-// in a fixed order, so the sums are deterministic (no atomics). The dx pass
+// in a fixed order, so the sums are deterministic (no atomics). The masked
+// reduces and dual_reduce share that structure (reduce_rows) and differ only
+// in the two terms of an element. The dx pass
 // is elementwise and needs no second pass. Rows and channels are masked at
 // the edges, so any M and C work. A simple design: wider loads, TMA and
 // fusing the two passes' reads are later work.
@@ -67,26 +74,22 @@ __device__ __forceinline__ void masked(const T* __restrict__ g, const T* __restr
   xhat = __fadd_rn(__fmul_rn(xv, c), d);
 }
 
-// Block (blockIdx.x, blockIdx.y): channels [32 bx, +32), rows
-// [by * rows_per_block, +rows_per_block). dst is (gridDim.y, 2, C).
-template <typename T, bool RES>
-__global__ void __launch_bounds__(TX * TY)
-bn_masked_reduce_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                        const T* __restrict__ r, const float* __restrict__ A,
-                        const float* __restrict__ B, const float* __restrict__ Cc,
-                        const float* __restrict__ D, int M, int C, int rows_per_block,
-                        float* __restrict__ dst) {
+// The reduce of a block (blockIdx.x, blockIdx.y): channels [32 bx, +32),
+// rows [by * rows_per_block, +rows_per_block); terms(i, dy, xhat) gives the
+// two terms of element i of channel c. Writes the block's two partial sums
+// to dst, which is (gridDim.y, 2, C).
+template <typename Terms>
+__device__ __forceinline__ void reduce_rows(int c, int M, int C, int rows_per_block,
+                                            Terms terms, float* __restrict__ dst) {
   __shared__ float sums[2][TY][TX];
-  const int c = (int)(blockIdx.x * TX + threadIdx.x);
   const int row0 = (int)blockIdx.y * rows_per_block;
   const int row_end = min(M, row0 + rows_per_block);
   float sdy = 0.f, sdyx = 0.f;
   if (c < C) {
-    const float a = A[c], b = B[c], cc = Cc[c], d = D[c];
 #pragma unroll 4
     for (int row = row0 + (int)threadIdx.y; row < row_end; row += TY) {
       float dy, xhat;
-      masked<T, RES>(g, x, r, (size_t)row * C + c, a, b, cc, d, dy, xhat);
+      terms((size_t)row * C + c, dy, xhat);
       sdy = __fadd_rn(sdy, dy);
       sdyx = __fadd_rn(sdyx, __fmul_rn(dy, xhat));
     }
@@ -100,6 +103,36 @@ bn_masked_reduce_kernel(const T* __restrict__ g, const T* __restrict__ x,
     for (int k = 0; k < TY; ++k) s = __fadd_rn(s, sums[threadIdx.y][k][threadIdx.x]);
     dst[((size_t)blockIdx.y * 2 + threadIdx.y) * C + c] = s;
   }
+}
+
+template <typename T, bool RES>
+__global__ void __launch_bounds__(TX * TY)
+bn_masked_reduce_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                        const T* __restrict__ r, const float* __restrict__ A,
+                        const float* __restrict__ B, const float* __restrict__ Cc,
+                        const float* __restrict__ D, int M, int C, int rows_per_block,
+                        float* __restrict__ dst) {
+  const int c = (int)(blockIdx.x * TX + threadIdx.x);
+  float a = 0.f, b = 0.f, cc = 0.f, d = 0.f;
+  if (c < C) a = A[c], b = B[c], cc = Cc[c], d = D[c];
+  reduce_rows(c, M, C, rows_per_block, [&](size_t i, float& dy, float& xhat) {
+    masked<T, RES>(g, x, r, i, a, b, cc, d, dy, xhat);
+  }, dst);
+}
+
+// kernel #9: no mask; dy = g, xhat = (x - mu) * inv
+template <typename T>
+__global__ void __launch_bounds__(TX * TY)
+bn_dual_reduce_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                      const float* __restrict__ mu, const float* __restrict__ inv, int M,
+                      int C, int rows_per_block, float* __restrict__ dst) {
+  const int c = (int)(blockIdx.x * TX + threadIdx.x);
+  float m = 0.f, v = 0.f;
+  if (c < C) m = mu[c], v = inv[c];
+  reduce_rows(c, M, C, rows_per_block, [&](size_t i, float& dy, float& xhat) {
+    dy = to_f32(g[i]);
+    xhat = __fmul_rn(__fsub_rn(to_f32(x[i]), m), v);
+  }, dst);
 }
 
 // out[i] = sum over row ranges s, in order, of partial[s * count + i]
@@ -135,22 +168,44 @@ bn_masked_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
   }
 }
 
-template <typename T, bool RES>
-int launch_reduce(const void* g, const void* x, const void* r, const void* const* consts,
-                  int M, int C, int rows_per_block, int splits, void* partial, void* out,
-                  cudaStream_t s) {
+// Runs first(dst), the reduce kernel writing its partials to dst, then, with
+// more than one row range, the fixed-order sum of the partials into out.
+template <typename First>
+int reduce_then_sum(First first, int C, int splits, void* partial, void* out,
+                    cudaStream_t s) {
   float* dst = static_cast<float*>(splits == 1 ? out : partial);
-  const dim3 grid((C + TX - 1) / TX, splits);
-  bn_masked_reduce_kernel<T, RES><<<grid, dim3(TX, TY), 0, s>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x), static_cast<const T*>(r),
-      static_cast<const float*>(consts[0]), static_cast<const float*>(consts[1]),
-      static_cast<const float*>(consts[2]), static_cast<const float*>(consts[3]), M, C,
-      rows_per_block, dst);
+  first(dst);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   bn_sum_partials_kernel<<<(2 * C + 255) / 256, 256, 0, s>>>(dst, splits, 2 * C,
                                                              static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool RES>
+int launch_reduce(const void* g, const void* x, const void* r, const void* const* consts,
+                  int M, int C, int rows_per_block, int splits, void* partial, void* out,
+                  cudaStream_t s) {
+  const dim3 grid((C + TX - 1) / TX, splits);
+  return reduce_then_sum([&](float* dst) {
+    bn_masked_reduce_kernel<T, RES><<<grid, dim3(TX, TY), 0, s>>>(
+        static_cast<const T*>(g), static_cast<const T*>(x), static_cast<const T*>(r),
+        static_cast<const float*>(consts[0]), static_cast<const float*>(consts[1]),
+        static_cast<const float*>(consts[2]), static_cast<const float*>(consts[3]), M, C,
+        rows_per_block, dst);
+  }, C, splits, partial, out, s);
+}
+
+template <typename T>
+int launch_dual_reduce(const void* g, const void* x, const void* mu, const void* inv, int M,
+                       int C, int rows_per_block, int splits, void* partial, void* out,
+                       cudaStream_t s) {
+  const dim3 grid((C + TX - 1) / TX, splits);
+  return reduce_then_sum([&](float* dst) {
+    bn_dual_reduce_kernel<T><<<grid, dim3(TX, TY), 0, s>>>(
+        static_cast<const T*>(g), static_cast<const T*>(x), static_cast<const float*>(mu),
+        static_cast<const float*>(inv), M, C, rows_per_block, dst);
+  }, C, splits, partial, out, s);
 }
 
 template <typename T, bool RES>
@@ -230,6 +285,23 @@ int masked_dx(const void* g, const void* x, const void* r, const void* A, const 
                                     dres, s)
            : launch_dx<float, false>(g, x, r, consts, M, C, rows_per_block, blocks_y, dx,
                                      dres, s);
+}
+
+// Replaces _dual_reduce_kernel (fused_bn.py:163-180, called at :203), the
+// two reduces of the plain BatchNorm backward. Bound by memory: 4 bytes per
+// bf16 element. g and x as above; mu and inv are the (C,) batch mean and
+// 1/sqrt(var + eps); partial and out as for masked_dual_reduce.
+int dual_reduce(const void* g, const void* x, const void* mu, const void* inv, int M, int C,
+                int dtype, int rows_per_block, int blocks_y, void* partial, void* out,
+                void* stream) {
+  if (bad_grid(M, C, rows_per_block, blocks_y) || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_dual_reduce<__nv_bfloat16>(g, x, mu, inv, M, C, rows_per_block, blocks_y,
+                                             partial, out, s);
+  return launch_dual_reduce<float>(g, x, mu, inv, M, C, rows_per_block, blocks_y, partial,
+                                   out, s);
 }
 
 const char* bn_epilogue_error_string(int err) {

@@ -45,6 +45,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "masked_dual_reduce": [_P] * 7 + [_I] * 5 + [_P, _P, _P],
     "masked_dx": [_P] * 10 + [_I] * 5 + [_P, _P, _P],
+    # kernel #9 of models/fused_bn.py, in the same source
+    "dual_reduce": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
 }
 
 
@@ -276,10 +278,17 @@ def _affine_consts(mu, inv, scale, bias):
     return A, bias.float() - mu * A, inv, -mu * inv
 
 
-def _bn_apply(x, mu, inv, scale, bias, residual=None):
+def bn_affine(x, mu, inv, scale, bias):
+    """The affine of flax-numerics BatchNorm: A = inv*scale and B = bias -
+    mu*A in float32, rounded to x's dtype, then y = x*A + B (two roundings
+    in bf16)."""
     A = inv * scale.float()
     B = bias.float() - mu * A
-    y = x * _channel(A.to(x.dtype), x) + _channel(B.to(x.dtype), x)
+    return x * _channel(A.to(x.dtype), x) + _channel(B.to(x.dtype), x)
+
+
+def _bn_apply(x, mu, inv, scale, bias, residual=None):
+    y = bn_affine(x, mu, inv, scale, bias)
     if residual is not None:
         y = y + residual
     return torch.relu(y)

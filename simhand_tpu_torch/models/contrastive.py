@@ -79,20 +79,22 @@ class ContrastiveModel(nn.Module):
 
     ``forward`` takes (N, H, W, 3) images and returns (embedding,
     projection), both float32; ``train()``/``eval()`` pick the BatchNorm
-    mode. ``bn_fused``, ``bn_subsample``, ``bn_stop_gradient_stats`` and
-    ``maxpool`` go to the encoder (``models/resnet.py``); the projection
-    head's BatchNorm stays exact.
+    mode. ``bn_fused``, ``bn_subsample``, ``bn_stop_gradient_stats``,
+    ``conv1x1_fuse_min_cin`` and ``maxpool`` go to the encoder
+    (``models/resnet.py``); the projection head's BatchNorm stays exact.
     """
 
     def __init__(self, resnet_size: str = "50", proj_hidden_dim: int = 512,
                  proj_output_dim: int = 128, dtype: torch.dtype = torch.float32,
                  bn_fused=False, bn_subsample: int = 1,
-                 bn_stop_gradient_stats: bool = False, maxpool: str = "xla"):
+                 bn_stop_gradient_stats: bool = False, conv1x1_fuse_min_cin: int = 0,
+                 maxpool: str = "xla"):
         super().__init__()
         self.resnet_size = resnet_size
         self.encoder = RESNETS[resnet_size](
             dtype=dtype, bn_fused=bn_fused, bn_subsample=bn_subsample,
-            bn_stop_gradient_stats=bn_stop_gradient_stats, maxpool=maxpool)
+            bn_stop_gradient_stats=bn_stop_gradient_stats,
+            conv1x1_fuse_min_cin=conv1x1_fuse_min_cin, maxpool=maxpool)
         self.projection_head = ProjectionHead(
             FEATURE_DIMS[resnet_size], proj_hidden_dim, proj_output_dim, dtype=dtype
         )

@@ -11,8 +11,14 @@ The BatchNorm variants of the JAX ``ResNet``, with its precedence:
 backward) routes every bn+relu and bn+add+relu site through
 ``bn_epilogue.BNRelu`` and keeps exact BatchNorm at the downsample sites;
 it ignores ``bn_subsample`` and ``bn_stop_gradient_stats``, as the
-reference does. Otherwise ``bn_subsample > 1`` or
+reference does. ``bn_fused=True`` (or ``"pallas"``, with kernel #9 in the
+backward) puts ``fused_bn.FusedBatchNorm`` at every site, downsample
+included; it passes ``bn_stop_gradient_stats`` on and ignores
+``bn_subsample``. Otherwise ``bn_subsample > 1`` or
 ``bn_stop_gradient_stats`` puts ``norm.SubsampledBatchNorm`` at every site.
+``conv1x1_fuse_min_cin > 0`` takes each bottleneck's conv1 and conv3 with
+at least that many input channels through ``fused_conv.fused_conv_bn_site``
+(kernel #10) in train mode; it composes only with exact BatchNorm.
 ``maxpool="masked"`` takes the stem pool through ``pool.max_pool_firstmatch``.
 """
 from __future__ import annotations
@@ -23,6 +29,8 @@ import torch
 from torch import nn
 
 from simhand_tpu_torch.models.bn_epilogue import BNRelu
+from simhand_tpu_torch.models.fused_bn import FusedBatchNorm
+from simhand_tpu_torch.models.fused_conv import fused_conv_bn_site
 from simhand_tpu_torch.models.layers import BatchNorm2d, Conv2d
 from simhand_tpu_torch.models.norm import SubsampledBatchNorm
 from simhand_tpu_torch.models.pool import max_pool_firstmatch
@@ -44,9 +52,8 @@ def norm_layers(bn_fused=False, bn_subsample: int = 1,
         impl = "plain" if bn_fused == "epilogue_xla" else "kernel"
         return BatchNorm2d, partial(BNRelu, impl=impl)
     if bn_fused in (True, "pallas"):
-        raise NotImplementedError(
-            f"bn_fused={bn_fused!r} (models/fused_bn.py, kernel "
-            "bn_backward_reduces) is not ported yet: ROADMAP Queue 2 #9")
+        return partial(FusedBatchNorm, stop_gradient_stats=bn_stop_gradient_stats,
+                       reduce_impl="kernel" if bn_fused == "pallas" else "plain"), None
     if bn_fused not in (False,):
         raise ValueError(f"bn_fused={bn_fused!r}: expected False, True, 'pallas', "
                          "'epilogue' or 'epilogue_xla'")
@@ -64,7 +71,9 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype,
-                 norm=BatchNorm2d, act_norm=None):
+                 norm=BatchNorm2d, act_norm=None, fuse_min_cin: int = 0):
+        # fuse_min_cin: taken for uniformity with Bottleneck; a basic block
+        # has no stride-1 1x1 site
         super().__init__()
         act_norm = act_norm or norm
         self.conv1 = Conv2d(cin, filters, 3, stride, dtype=dtype)
@@ -89,9 +98,10 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype,
-                 norm=BatchNorm2d, act_norm=None):
+                 norm=BatchNorm2d, act_norm=None, fuse_min_cin: int = 0):
         super().__init__()
         act_norm = act_norm or norm
+        self.fuse_min_cin = fuse_min_cin
         cout = filters * self.expansion
         self.conv1 = Conv2d(cin, filters, 1, dtype=dtype)
         self.bn1 = act_norm(filters)
@@ -105,11 +115,20 @@ class Bottleneck(nn.Module):
                 Conv2d(cin, cout, 1, stride, dtype=dtype), norm(cout)
             )
 
+    def _conv_bn_relu(self, conv, bn, x, residual=None):
+        """relu(bn(conv(x)) (+ residual)) of a 1x1 site: in train mode
+        through the fused conv1x1+BN site when x has at least fuse_min_cin
+        channels (the reference's _conv_bn_site, resnet.py:75-81)."""
+        if self.fuse_min_cin and self.training and x.shape[1] >= self.fuse_min_cin:
+            y = fused_conv_bn_site(conv, bn, x)
+            return torch.relu(y if residual is None else y + residual)
+        return bn_relu(bn, conv(x), residual)
+
     def forward(self, x):
-        y = bn_relu(self.bn1, self.conv1(x))
+        y = self._conv_bn_relu(self.conv1, self.bn1, x)
         y = bn_relu(self.bn2, self.conv2(y))
         residual = x if self.downsample is None else self.downsample(x)
-        return bn_relu(self.bn3, self.conv3(y), residual)
+        return self._conv_bn_relu(self.conv3, self.bn3, y, residual)
 
 
 class ResNet(nn.Module):
@@ -117,18 +136,24 @@ class ResNet(nn.Module):
 
     pool=True returns the float32 (N, C) global-average-pooled embedding;
     pool=False the (N, H/32, W/32, C) feature map. ``bn_fused``,
-    ``bn_subsample``, ``bn_stop_gradient_stats`` and ``maxpool`` ("xla" or
-    "masked") are the JAX ``ResNet``'s fields of the same names.
+    ``bn_subsample``, ``bn_stop_gradient_stats``, ``conv1x1_fuse_min_cin``
+    and ``maxpool`` ("xla" or "masked") are the JAX ``ResNet``'s fields of
+    the same names.
     """
 
     def __init__(self, stage_sizes, block, dtype: torch.dtype = torch.float32,
                  pool: bool = True, bn_fused=False, bn_subsample: int = 1,
-                 bn_stop_gradient_stats: bool = False, maxpool: str = "xla"):
+                 bn_stop_gradient_stats: bool = False, conv1x1_fuse_min_cin: int = 0,
+                 maxpool: str = "xla"):
         super().__init__()
         if maxpool not in ("xla", "masked"):
             raise ValueError(f"maxpool must be 'xla' or 'masked', got {maxpool!r}")
         norm, act_norm = norm_layers(bn_fused, bn_subsample, bn_stop_gradient_stats)
         self.dtype, self.pool, self.maxpool = dtype, pool, maxpool
+        self.conv1x1_fuse_min_cin = conv1x1_fuse_min_cin
+        # the fused conv1x1+BN site owns the whole site with exact BatchNorm;
+        # the reference refuses the other variants in train mode (resnet.py:262-269)
+        self._fuse_conflict = bool(bn_fused) or bn_subsample > 1 or bn_stop_gradient_stats
         self.conv1 = Conv2d(3, 64, 7, 2, padding=3, dtype=dtype)
         self.bn1 = (act_norm or norm)(64)
         cin = 64
@@ -136,12 +161,18 @@ class ResNet(nn.Module):
             blocks = []
             for b in range(n_blocks):
                 stride = 2 if stage > 0 and b == 0 else 1
-                blocks.append(block(cin, 64 * 2**stage, stride, dtype, norm, act_norm))
+                blocks.append(block(cin, 64 * 2**stage, stride, dtype, norm, act_norm,
+                                    conv1x1_fuse_min_cin))
                 cin = 64 * 2**stage * block.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self.num_features = cin
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
+        if self.conv1x1_fuse_min_cin and self.training and self._fuse_conflict:
+            raise NotImplementedError(
+                "conv1x1_fuse_min_cin composes only with exact BatchNorm (it owns the "
+                "whole conv+BN site); disable the bn_fused/bn_subsample/stop-gradient "
+                "variants")
         x = images.to(self.dtype).permute(0, 3, 1, 2)      # NHWC -> NCHW view
         x = bn_relu(self.bn1, self.conv1(x))
         if self.maxpool == "masked":

@@ -1,0 +1,135 @@
+"""1x1 convolution (a matrix product) with a BatchNorm-statistics epilogue
+(counterpart of ``simhand_tpu/ops/conv1x1.py``).
+
+  conv1x1_stats(x2d, w)               y = x2d @ w.T rounded to x's dtype;
+                                      s1, s2 = the column sums of y and y^2
+  conv1x1_bn_relu_stats(x2d, w, A, B) the same on relu(x2d * A + B), per
+                                      input channel, rounded to x's dtype
+
+x2d is the (M, Cin) plane of a channels-last activation and w the
+(Cout, Cin) weight (the reference takes (Cin, Cout)); A and B are float32
+(Cin,) vectors. The statistics are float32 and are those of the rounded y,
+as the reference's epilogue takes them.
+
+On CPU tensors a wrapper calls its plain version (any float dtype); on CUDA
+tensors it launches its kernel from ``csrc/conv1x1.cu`` on the current
+stream or raises, and adds one to its ``launches`` count at each launch and
+nowhere else. The kernels take bf16 only: Cin and Cout multiples of 8, any M.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from simhand_tpu_torch import native
+from simhand_tpu_torch.device import on_cpu
+
+_BM = 128         # rows of a block's tile in csrc/conv1x1.cu
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "conv1x1_stats": [_P, _P] + [_I] * 3 + [_P] * 4,
+    "conv1x1_bn_relu_stats": [_P] * 4 + [_I] * 3 + [_P] * 4,
+}
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The kernels' library, built at first use, with its C signatures."""
+    lib = native.load("conv1x1")
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    lib.conv1x1_error_string.argtypes = [ctypes.c_int]
+    lib.conv1x1_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# --------------------------------------------------------------------------
+# plain versions (the reference's arithmetic, conv1x1.py:26-57)
+# --------------------------------------------------------------------------
+
+def conv1x1_stats_plain(x2d, w):
+    y = (x2d.float() @ w.float().T).to(x2d.dtype)
+    y32 = y.float()
+    return y, y32.sum(0), (y32 * y32).sum(0)
+
+
+def conv1x1_bn_relu_stats_plain(x2d, w, A, B):
+    return conv1x1_stats_plain(torch.relu(x2d.float() * A + B).to(x2d.dtype), w)
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+
+def _check(x2d, w, consts):
+    for name, t in (("x2d", x2d), ("w", w)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+        if t.dim() != 2 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: expected a contiguous, 16-byte aligned row-major "
+                             f"matrix, got shape {tuple(t.shape)} strides {t.stride()}")
+    (m, cin), (cout, k) = x2d.shape, w.shape
+    if k != cin or m == 0:
+        raise ValueError(f"w: expected ({cout}, {cin}) for x2d of shape {tuple(x2d.shape)}, "
+                         f"got {tuple(w.shape)}")
+    if cin % 8 or cout % 8:
+        raise ValueError(f"Cin={cin} and Cout={cout} must be multiples of 8")
+    if math.ceil(m / _BM) > 65535:
+        raise ValueError(f"M={m} exceeds the grid ({65535 * _BM} rows)")
+    for name, t in consts.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != (cin,) or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous float32 ({cin},) tensor")
+
+
+def _launch(name, x2d, w, consts):
+    _check(x2d, w, consts)
+    m, cout = x2d.shape[0], w.shape[0]
+    y = x2d.new_empty((m, cout))
+    out = x2d.new_empty((2, cout), dtype=torch.float32)
+    # per row tile; freed on return (the caching allocator hands it only to
+    # work queued later on this stream, which runs after both passes)
+    tiles = math.ceil(m / _BM)
+    partial = out if tiles == 1 else out.new_empty((tiles, 2, cout))
+    lib = _library()
+    with torch.cuda.device(x2d.device):
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        err = getattr(lib, name)(x2d.data_ptr(), w.data_ptr(),
+                                 *[t.data_ptr() for t in consts.values()],
+                                 m, cout, x2d.shape[1], y.data_ptr(), partial.data_ptr(),
+                                 out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}: {lib.conv1x1_error_string(err).decode()}")
+    return y, out[0], out[1]
+
+
+def conv1x1_stats(x2d, w):
+    """(y, s1, s2): y = x2d @ w.T in x's dtype, s1/s2 the float32 column sums
+    of y and y^2. w is (Cout, Cin)."""
+    if on_cpu(x2d, w):
+        return conv1x1_stats_plain(x2d, w)
+    out = _launch("conv1x1_stats", x2d, w, {})
+    conv1x1_stats.launches += 1
+    return out
+
+
+def conv1x1_bn_relu_stats(x2d, w, A, B):
+    """conv1x1_stats of relu(x2d * A + B) (float32 A, B per input channel)."""
+    if on_cpu(x2d, w, A, B):
+        return conv1x1_bn_relu_stats_plain(x2d, w, A, B)
+    out = _launch("conv1x1_bn_relu_stats", x2d, w, dict(A=A, B=B))
+    conv1x1_bn_relu_stats.launches += 1
+    return out
+
+
+KERNELS = (conv1x1_stats, conv1x1_bn_relu_stats)
+for _fn in KERNELS:
+    _fn.launches = 0
+
+
+def reset_launches() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

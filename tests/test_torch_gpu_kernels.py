@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card (the NT-Xent kernels of ``csrc/ntxent.cu`` and
-the fused BN+ReLU backward of ``csrc/bn_epilogue.cu``), against their plain
+"""The CUDA kernels on the card (the NT-Xent kernels of ``csrc/ntxent.cu``,
+the BatchNorm backward reduces of ``csrc/bn_epilogue.cu`` and the 1x1
+convolution with statistics of ``csrc/conv1x1.cu``), against their plain
 PyTorch versions.
 
 These tests need a CUDA card and ``nvcc``; without them they skip. They
@@ -214,3 +215,132 @@ def test_bnrelu_kernel_backward_matches_plain_backward(cuda):
     assert ((a - b).abs() <= 2.0**-7 * b.abs() + 1e-6 * b.abs().max()).all()
     for a, b in ((ds, ds_), (db, db_)):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+# --------------------------------------------------------------------------
+# kernel #9, the two reduces of the plain BatchNorm backward (fused_bn.py)
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(8, 96, 5, 25), (3, 100, 7, 11)], ids=["1000x96", "231x100"])
+def test_bn_backward_reduces_matches_plain_version(cuda, shape, dtype):
+    """Ragged M and C, and a gradient that is not channels-last (the wrapper
+    copies it); sums to rel 1e-5 of the largest (the same float32 terms,
+    each rounded in the plain version's order, added in another order)."""
+    from simhand_tpu_torch.models import bn_epilogue as E
+    from simhand_tpu_torch.models import fused_bn as F
+
+    x, _, g, _, _ = _bn_inputs(cuda, shape, dtype)
+    mu, _, inv = E.batch_stats(x, 1e-5)
+    want = F.bn_backward_reduces_plain(E.as_rows(x), E.as_rows(g), mu, inv)
+    F.reset_launches()
+    for dy in (g, g.contiguous()):
+        got = F.bn_backward_reduces(x, dy, mu, inv)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    assert F.bn_backward_reduces.launches == 2
+    with pytest.raises(ValueError, match="channels-last"):
+        F.bn_backward_reduces(x.contiguous(), g, mu, inv)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        F.bn_backward_reduces(x.half(), g.half(), mu, inv)
+
+
+@pytest.mark.gpu
+def test_fused_batchnorm_kernel_backward_matches_plain_backward(cuda):
+    """BNTrain, reduce_impl="kernel" against "plain": the same forward, and
+    gradients whose sums differ in their last bits."""
+    from simhand_tpu_torch.models import fused_bn as F
+
+    x, _, g, _, _ = _bn_inputs(cuda, (16, 256, 8, 8), torch.bfloat16)
+    scale = torch.rand(256, device="cuda", generator=cuda).add_(0.5).requires_grad_()
+    bias = torch.zeros(256, device="cuda", requires_grad=True)
+    out = []
+    for impl in ("kernel", "plain"):
+        xx = x.clone().requires_grad_()
+        y, _, _ = F.BNTrain.apply(xx, scale, bias, 1e-5, False, impl)
+        out.append([y, *torch.autograd.grad(y, (xx, scale, bias), g)])
+    (y, dx, ds, db), (y_, dx_, ds_, db_) = out
+    assert torch.equal(y, y_)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    a, b = dx.float(), dx_.float()
+    assert ((a - b).abs() <= 2.0**-7 * b.abs() + 1e-6 * b.abs().max()).all()
+    for a, b in ((ds, ds_), (db, db_)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+# --------------------------------------------------------------------------
+# kernels #10/#11, the 1x1 convolution with statistics (ops/conv1x1.py)
+# --------------------------------------------------------------------------
+
+def assert_y_within_one_ulp(got, want, x2d, w):
+    """bf16 y against the plain version's (cuBLAS in float32, TF32 off): one
+    bf16 ulp at the larger magnitude, plus 2^-16 * sum_k |x||w|, an allowance
+    for the two float32 accumulations' different order (their difference is
+    of the order of K * 2^-24 * |y|, which only matters where y is near 0)."""
+    a, b = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.ones_like(a), e - 8)
+    floor = 2.0**-16 * (x2d.float().abs() @ w.float().abs().T)
+    assert ((a - b).abs() <= ulp + floor).all(), float((a - b).abs().max())
+
+
+def assert_stats_of(y, s1, s2):
+    """s1, s2 against the float64 column sums of the kernel's own y: rel
+    1e-5 of the largest (float32 sums of rounded values, in tiles)."""
+    y64 = y.double()
+    for got, want in ((s1, y64.sum(0)), (s2, (y64 * y64).sum(0))):
+        assert float((got.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,cin,cout", [(1000, 96, 40), (300, 200, 136), (128, 8, 8)],
+                         ids=["1000x96-40", "300x200-136", "one-tile"])
+def test_conv1x1_kernels_match_plain_versions(cuda, m, cin, cout):
+    """A ragged M, a K that is not a multiple of the 32-column step, an N of
+    two column tiles, one row tile. The statistics against the plain
+    version's to rel 1e-3 of the largest (a y element that rounds to the
+    neighbouring bf16 value moves them)."""
+    from simhand_tpu_torch.ops import conv1x1 as C
+
+    x2d = torch.randn(m, cin, device="cuda", generator=cuda).bfloat16()
+    w = (torch.randn(cout, cin, device="cuda", generator=cuda) / cin**0.5).bfloat16()
+    A = 1 + 0.3 * torch.randn(cin, device="cuda", generator=cuda)
+    B = 0.1 * torch.randn(cin, device="cuda", generator=cuda)
+    C.reset_launches()
+    xa = torch.relu(x2d.float() * A + B).bfloat16()
+    for got, want, xin in ((C.conv1x1_stats(x2d, w), C.conv1x1_stats_plain(x2d, w), x2d),
+                           (C.conv1x1_bn_relu_stats(x2d, w, A, B),
+                            C.conv1x1_bn_relu_stats_plain(x2d, w, A, B), xa)):
+        torch.cuda.synchronize()
+        y, s1, s2 = got
+        assert y.shape == (m, cout) and y.dtype == torch.bfloat16
+        assert_y_within_one_ulp(y, want[0], xin, w)
+        assert_stats_of(y, s1, s2)
+        for a, b in zip((s1, s2), want[1:]):
+            assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+    assert [fn.launches for fn in C.KERNELS] == [1, 1]
+
+
+@pytest.mark.gpu
+def test_conv1x1_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from simhand_tpu_torch.ops import conv1x1 as C
+
+    x2d = torch.randn(64, 32, device="cuda", generator=cuda).bfloat16()
+    w = torch.randn(16, 32, device="cuda", generator=cuda).bfloat16()
+    with pytest.raises(TypeError, match="bfloat16"):
+        C.conv1x1_stats(x2d.float(), w.float())
+    with pytest.raises(ValueError, match="row-major"):
+        C.conv1x1_stats(x2d.T.contiguous().T, w)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        C.conv1x1_stats(x2d[:, :28].contiguous(), w[:, :28].contiguous())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        C.conv1x1_stats(x2d, w[:12].contiguous())
+    with pytest.raises(ValueError, match="w: expected"):
+        C.conv1x1_stats(x2d, w[:, :16].contiguous())
+    with pytest.raises(ValueError, match="A"):
+        C.conv1x1_bn_relu_stats(x2d, w, torch.ones(16, device="cuda"),
+                                torch.zeros(32, device="cuda"))
+    with pytest.raises(ValueError, match="several devices"):
+        C.conv1x1_stats(x2d, w.cpu())

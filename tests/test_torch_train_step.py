@@ -151,18 +151,21 @@ def synthetic_batch(b: int, seed: int = 0) -> dict:
     return {k: v.astype(np.float32) for k, v in batch.items()}
 
 
-def run_both(b: int, use_pallas: bool, f64: bool = False, epilogue: bool = False):
+# the port's bn_fused -> the JAX model's: the same math without interpret mode
+JAX_BN_FUSED = {False: False, "epilogue": "epilogue_xla", "pallas": True}
+
+
+def run_both(b: int, use_pallas: bool, f64: bool = False, bn_fused=False):
     """STEPS train steps and one eval step of simhand_w in both packages
     from one init. Returns the losses, eval losses, initial, JAX and port
-    state dicts, and the learning rates of the steps. ``epilogue`` builds
-    the port's model with bn_fused="epilogue" and the JAX model with
-    "epilogue_xla" (the same math without interpret mode)."""
+    state dicts, and the learning rates of the steps. ``bn_fused`` is the
+    port's; the JAX model takes JAX_BN_FUSED[bn_fused]."""
     cfg = dict(experiment_type="simhand_w", augmentation=("crop", "rotate", "resize"),
                image_side=float(SIDE), use_pallas=use_pallas)
     batch = synthetic_batch(b)
     with jax.enable_x64(f64):
         jm = JModel(resnet_size="18", dtype=jnp.float64 if f64 else jnp.float32,
-                    bn_fused="epilogue_xla" if epilogue else False)
+                    bn_fused=JAX_BN_FUSED[bn_fused])
         jstate = jcreate(jm, JOpt(**OPT), jax.random.key(0), input_shape=(2, SIDE, SIDE, 3))
         init = from_flax_variables(to_numpy(jstate.params), to_numpy(jstate.batch_stats))
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -174,7 +177,7 @@ def run_both(b: int, use_pallas: bool, f64: bool = False, epilogue: bool = False
         want = from_flax_variables(to_numpy(jstate.params), to_numpy(jstate.batch_stats))
 
     tm = TModel("18", dtype=torch.float64 if f64 else torch.float32,
-                bn_fused="epilogue" if epilogue else False)
+                bn_fused=bn_fused)
     tstate = tcreate(tm, TOpt(**OPT), 0, input_shape=(2, SIDE, SIDE, 3), device="cpu")
     tm.load_state_dict(init, strict=True)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -219,26 +222,29 @@ def assert_states_match(init, want, got, lrs, update_rtol, stats_rtol, bn_too):
     assert not torch.equal(got["encoder.conv1.weight"], init["encoder.conv1.weight"])
 
 
-@pytest.mark.parametrize("b,use_pallas,epilogue", [(8, False, False), (256, True, False),
-                                                  (8, False, True)],
-                         ids=["dense-B8", "kernel-B256", "epilogue-B8"])
-def test_train_steps_match(b, use_pallas, epilogue):
+@pytest.mark.parametrize("b,use_pallas,bn_fused", [(8, False, False), (256, True, False),
+                                                  (8, False, "epilogue"), (8, False, "pallas")],
+                         ids=["dense-B8", "kernel-B256", "epilogue-B8", "fused-B8"])
+def test_train_steps_match(b, use_pallas, bn_fused):
     """simhand_w, ResNet-18 at 32x32 in float32: B = 8 takes the dense
     route; B = 256 (2B = 512) passes the 2B % 512 gate and takes the
     kernel route in both packages; epilogue-B8 is the dense route through
-    the fused BN+ReLU encoder (bn_fused="epilogue", JAX "epilogue_xla").
+    the fused BN+ReLU encoder (bn_fused="epilogue", JAX "epilogue_xla");
+    fused-B8 through the hand-derived BatchNorm backward (bn_fused="pallas",
+    JAX bn_fused=True).
 
     Tolerances: each step's loss to rel 1e-4 (measured <= 7.3e-6: XLA's and
     oneDNN's float32 convolutions round differently, and train-mode
     BatchNorm over few values per channel amplifies that); the eval loss
     after the steps to rel 5e-4 (measured <= 9.8e-5: it sees the parameters
     that stepped apart). Weight updates to 0.25 of their norm (measured 0.013
-    at B = 8, 0.127 at B = 256 and 0.016 for epilogue-B8: about 0.4% of the
-    elements took opposite Adam signs). BatchNorm statistics to 3e-2 of each
-    tensor's largest value (measured 2.1e-3, 1.6e-2 and 1.9e-3). The float64
-    test below holds the same step to rounding.
+    at B = 8, 0.127 at B = 256, 0.016 for epilogue-B8 and 0.016 for
+    fused-B8: about 0.4% of the elements took opposite Adam signs).
+    BatchNorm statistics to 3e-2 of each tensor's largest value (measured
+    2.1e-3, 1.6e-2, 1.9e-3 and 1.8e-3). The float64 test below holds the
+    same step to rounding.
     """
-    (jl, tl), (je, te), init, want, got, lrs = run_both(b, use_pallas, epilogue=epilogue)
+    (jl, tl), (je, te), init, want, got, lrs = run_both(b, use_pallas, bn_fused=bn_fused)
     np.testing.assert_allclose(tl, jl, rtol=1e-4)
     assert te == pytest.approx(je, rel=5e-4)
     assert_states_match(init, want, got, lrs, update_rtol=0.25, stats_rtol=3e-2,
