@@ -65,7 +65,25 @@
    fused site's output and gradients against cuDNN's conv and BatchNorm at
    three of the step's sites, each within 1e-2 of its norm; five steps as
    above with kernel #10 launched 15 times per step, #11 never, #2/#4 once;
-   timed in turns with the exact route, a torch.profiler breakdown.
+   timed in turns with the exact route, a torch.profiler breakdown;
+11. holds kernel #12 (one whole frozen identity bottleneck block,
+   csrc/bottleneck_block.cu) against its plain version in bf16 at ResNet-50's
+   layer4 at 128x128 and 224x224 and layer3 at 128x128 (256 images each) and
+   the JAX test's ragged (2, 3) x 4: y within rtol = atol = 2e-2 and at most
+   BLOCK_ULP_SHARE of it more than one bf16 ulp away; layer1 at 128x128 must
+   be refused; times it (CUDA events, torch.profiler, the plain version, the
+   bound) beside the same block through the walk's own cuDNN route (CUDA
+   events and torch.profiler);
+12. runs the frozen bf16 serving forward (ResNet-50, 128x128, B = 256, BN
+   folded, random weights and BatchNorm statistics from ``--seed``) with
+   layer4_1/2 through kernel #12: two launches per forward, embeddings
+   against the same walk through cuDNN, the float32 folded walk and the
+   model's own bf16 eval forward; img/s of the three timed in turns, a
+   torch.profiler breakdown of the kernel walk and of the cuDNN walk;
+13. serves that forward through the micro-batcher on 127.0.0.1 (batch 128):
+   eight concurrent requests of mixed sizes, each row equal to the direct
+   forward on the same padded batch, /healthz, then requests/s of a burst
+   of 256 whose every answer is checked the same way.
 
 Any failure ends the run with a non-zero exit code. The last line of the
 output is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -91,7 +109,8 @@ BF16_TENSOR_OPS_PER_S = 989e12
 
 SOURCES = {"ntxent": "simhand_tpu_torch/csrc/ntxent.cu",
            "bn_epilogue": "simhand_tpu_torch/csrc/bn_epilogue.cu",
-           "conv1x1": "simhand_tpu_torch/csrc/conv1x1.cu"}
+           "conv1x1": "simhand_tpu_torch/csrc/conv1x1.cu",
+           "bottleneck_block": "simhand_tpu_torch/csrc/bottleneck_block.cu"}
 REPLACES = {
     "ntxent_denominator": "simhand_tpu/losses/pallas_ntxent.py:76",
     "weighted_ntxent_denominator": "simhand_tpu/losses/pallas_ntxent.py:154",
@@ -127,6 +146,25 @@ CONV_SHAPES = (("layer2_conv1", 131072, 512, 128, 3), ("layer3_0_conv1", 131072,
                ("ragged", 1000, 96, 40, 0))
 CONV_MAIN_SHAPE = "layer3_conv1"
 CONV_FUSE_MIN_CIN, CONV_PER_STEP = 512, 15
+# kernel #12: identity blocks of ResNet-50 as (label, images, (H, W), C, Cm);
+# main shape layer4 of the serving forward at 128x128, B = 256
+BLOCK_REPLACES = {"bottleneck_block": "simhand_tpu/ops/bottleneck_block.py:92"}
+BLOCK_SHAPES = (("layer4_128", 256, (4, 4), 2048, 512), ("layer4_224", 256, (7, 7), 2048, 512),
+                ("layer3_128", 256, (8, 8), 1024, 256), ("ragged_2x3", 4, (2, 3), 256, 128))
+BLOCK_MAIN_SHAPE = "layer4_128"
+BLOCK_REFUSED = ("layer1_128", 1, (32, 32), 256, 64)   # h1 and h2 outgrow shared memory
+# y against the plain version: the JAX test's rtol = atol = 2e-2, and the
+# share of elements more than one bf16 ulp away (float32 sums in another
+# order round an element of h1 or h2 to its other neighbour, which moves y;
+# measured 0.44-0.51% at layer4 on an H100): four times that
+BLOCK_RTOL, BLOCK_ULP_SHARE = 2e-2, 2e-2
+# the serving forward: ResNet-50 at SIDE, SERVE_IMAGES images, the blocks of
+# scripts/bench_block.py:64-65 through #12; the server's batch
+SERVE_BLOCKS, SERVE_IMAGES, SERVE_TIMED, SERVER_BATCH = ("layer4_1", "layer4_2"), 256, 10, 128
+# embeddings of the kernel walk against the cuDNN walk, relative to the
+# largest: the two differ by conv3's rounding before the shortcut's add at
+# two blocks and by the sums' order (CPU, ResNet-50 at 64x64: 3.0e-3)
+SERVE_WALK_RTOL = 1e-2
 SHAPES = (("512x512", 512, 512, 0), ("512x16384", 512, 16384, 4096),
           ("16384x16384", 16384, 16384, 0))
 MAIN_SHAPE = "512x512"
@@ -376,7 +414,8 @@ def profile_steps(step, state, batch, n: int = PROFILED_STEPS) -> dict:
     # the port's kernels and their second passes, by source
     for group, names in (("ntxent", ("ntxent_tile_kernel", "sum_splits")),
                          ("bn_epilogue", ("bn_masked_", "bn_dual_reduce", "bn_sum_partials")),
-                         ("conv1x1", ("conv1x1_",))):
+                         ("conv1x1", ("conv1x1_",)),
+                         ("bottleneck_block", ("bottleneck_block_kernel",))):
         mine = [e for e in kernels if any(k in e.key for k in names)]
         ms = sum(e.self_device_time_total for e in mine) / n / 1e3
         print(f"profile: {group} kernels {ms:.4f} ms/step "
@@ -1043,6 +1082,306 @@ def conv1x1_path(seed: int, exact_state, batch) -> tuple[dict, dict]:
     return launches, perf
 
 
+def block_bound(m: int, cin: int, cm: int) -> tuple[float, str]:
+    """Least time of kernel #12: bytes (x read once, y written once, the bf16
+    weights and float32 biases read once) over the memory rate, or the three
+    GEMMs' 2*M*(Cin*Cm + 9*Cm^2 + Cm*Cin) operations over the bf16 tensor
+    peak, the larger."""
+    weights = cin * cm + 9 * cm * cm + cm * cin
+    t_bytes = (2 * 2 * m * cin + 2 * weights + 4 * (2 * cm + cin)) / HBM_BYTES_PER_S
+    t_ops = 2.0 * m * weights / BF16_TENSOR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def block_args(gen, imgs: int, hw, cin: int, cm: int):
+    """x and the K-contiguous folded weights of one identity block, with the
+    scales of a folded ResNet block (weights ~ 1/sqrt(fan-in))."""
+    import torch
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    x = randn(imgs * hw[0] * hw[1], cin).bfloat16()
+    w1 = randn(cm, cin, scale=cin**-0.5).bfloat16()
+    w2 = randn(cm, 9, cm, scale=(9 * cm) ** -0.5).bfloat16()
+    w3 = randn(cin, cm, scale=cm**-0.5).bfloat16()
+    return x, w1, 0.1 * randn(cm), w2, 0.1 * randn(cm), w3, 0.1 * randn(cin)
+
+
+def cudnn_block(imgs: int, hw, args):
+    """The same block through the folded walk's own route for a block the
+    kernel does not own (FoldedBf16Ops: three bf16 cuDNN convolutions, the
+    float32 biases, ReLUs and the shortcut's add): a zero-argument callable
+    returning the (M, C) plane."""
+    from simhand_tpu_torch.ops.bottleneck_block import FoldedBf16Ops
+
+    x, w1, b1, w2, b2, w3, b3 = args
+    (h, w), cm, c = hw, w1.shape[0], x.shape[1]
+    ops = FoldedBf16Ops({"b/conv1": (w1.view(cm, c, 1, 1), b1),
+                         "b/conv2": (w2.view(cm, 3, 3, cm).permute(0, 3, 1, 2).contiguous(), b2),
+                         "b/conv3": (w3.view(c, cm, 1, 1), b3)})
+    xi = x.view(imgs, h, w, c).permute(0, 3, 1, 2)
+
+    def run():
+        y = ops.conv_bn_relu("b/conv1", xi, 1, "SAME")
+        y = ops.conv_bn_relu("b/conv2", y, 1, "SAME")
+        y = ops.add_relu("b/out", ops.conv_bn("b/conv3", y, 1, "SAME"), xi)
+        return y.permute(0, 2, 3, 1).reshape(-1, c)
+
+    return run
+
+
+def ulp_share(got, want) -> float:
+    """Share of elements more than one bf16 ulp apart at the larger magnitude."""
+    import torch
+
+    a, b = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return float(((a - b).abs() > torch.ldexp(torch.ones_like(a), e - 8)).float().mean())
+
+
+def block_kernel_phase(seed: int) -> dict:
+    """Kernel #12 against its plain version at BLOCK_SHAPES, beside the
+    walk's cuDNN route; BLOCK_REFUSED must raise."""
+    import torch
+
+    from simhand_tpu_torch.ops import bottleneck_block as BB
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    report = {}
+    for label, imgs, hw, cin, cm in BLOCK_SHAPES:
+        args = block_args(gen, imgs, hw, cin, cm)
+        m = args[0].shape[0]
+
+        def kernel():
+            return BB.bottleneck_block(*args, hw=hw)
+
+        def plain():
+            return BB.bottleneck_block_plain(*args, hw=hw)
+
+        cudnn = cudnn_block(imgs, hw, args)
+        got, want, walk = kernel(), plain(), cudnn()
+        torch.cuda.synchronize()
+        row = {"max_abs_err": float((got.float() - want.float()).abs().max()),
+               "share_over_one_ulp": ulp_share(got, want),
+               "cudnn_max_abs_diff": float((walk.float() - want.float()).abs().max())}
+        close = bool(((got.float() - want.float()).abs()
+                      <= BLOCK_RTOL + BLOCK_RTOL * want.float().abs()).all())
+        require(close and row["share_over_one_ulp"] <= BLOCK_ULP_SHARE,
+                f"#12 {label}: y differs from the plain version's {row}")
+        del got, want, walk
+        big = m * cin >= 2**24
+        row["ms"] = cuda_ms(kernel, 20 if big else 50)
+        row["device_ms"] = device_ms(kernel, 10)
+        row["plain_ms"] = cuda_ms(plain, 3)
+        row["cudnn_block_ms"] = cuda_ms(cudnn, 20 if big else 50)
+        # its ~8 launches make the event time depend on the host's enqueue
+        row["cudnn_block_device_ms"] = device_ms(cudnn, 10)
+        row["bound_ms"], row["bound_by"] = block_bound(m, cin, cm)
+        report[label] = row
+        print(f"block kernel bottleneck_block {label} ({imgs} x {hw}, C {cin}, Cm {cm}): " + " ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()))
+        del args, cudnn
+        torch.cuda.empty_cache()
+    label, imgs, hw, cin, cm = BLOCK_REFUSED
+    try:
+        BB.bottleneck_block(*block_args(gen, imgs, hw, cin, cm), hw=hw)
+    except ValueError as exc:
+        print(f"block kernel refuses {label} ({hw}, Cm {cm}): {exc}")
+    else:
+        raise SmokeFailure(f"#12 took {label}, whose h1 and h2 outgrow shared memory")
+    return {"bottleneck_block": report}
+
+
+def serving_model(seed: int):
+    """ResNet-50 ContrastiveModel in bf16 on the card, eval mode, with random
+    weights and BatchNorm affines and running statistics from seed (scale
+    1 + N(0, 0.1^2), bias N(0, 0.1^2), mean N(0, 0.1^2), var U(0.5, 1.5)):
+    near the init's, so that 16 blocks neither blow up nor vanish, and far
+    enough from mean 0 / var 1 to exercise the fold."""
+    import torch
+
+    from simhand_tpu_torch.models import ContrastiveModel
+
+    torch.manual_seed(seed)
+    model = ContrastiveModel(RESNET, dtype=torch.bfloat16).cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
+                c = mod.num_features
+                mod.weight.copy_(1 + 0.1 * torch.randn(c, device="cuda", generator=gen))
+                mod.bias.copy_(0.1 * torch.randn(c, device="cuda", generator=gen))
+                mod.running_mean.copy_(0.1 * torch.randn(c, device="cuda", generator=gen))
+                mod.running_var.copy_(0.5 + torch.rand(c, device="cuda", generator=gen))
+    return model
+
+
+def cosines(a, b):
+    import torch
+
+    return torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=1)
+
+
+def timed_calls(fn, x, n: int) -> float:
+    """ms of one call of fn(x) over n calls, host clock around a sync."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def serving_path(seed: int) -> tuple[dict, dict, object]:
+    """The frozen bf16 serving forward with layer4_1/2 through kernel #12,
+    against the cuDNN walk, the float32 walk and the model's eval forward."""
+    import torch
+
+    from simhand_tpu_torch.ops import bottleneck_block as BB
+    from simhand_tpu_torch.serving import fold_encoder_f32
+
+    model = serving_model(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    images = torch.randn(SERVE_IMAGES, SIDE, SIDE, 3, device="cuda", generator=gen)
+    walks = {"kernel": BB.make_folded_encoder_bf16(model, SERVE_BLOCKS),
+             "cudnn": BB.make_folded_encoder_bf16(model),
+             "eval": lambda x: model(x)[0]}
+    BB.reset_launches()
+    emb = walks["kernel"](images)
+    torch.cuda.synchronize()
+    per_forward = BB.bottleneck_block.launches
+    require(per_forward == len(SERVE_BLOCKS), f"#12 launched {per_forward} times in one forward")
+    with torch.no_grad():
+        cudnn, ev = walks["cudnn"](images), walks["eval"](images)
+        f32 = fold_encoder_f32(model)(images)["embedding"]
+    require(emb.shape == (SERVE_IMAGES, 2048) and bool(emb.isfinite().all()),
+            f"kernel walk embedding {tuple(emb.shape)}, finite {bool(emb.isfinite().all())}")
+    scale = float(cudnn.abs().max())
+    perf = {"launches_per_forward": per_forward, "embedding_max_abs": scale,
+            "kernel_vs_cudnn_rel": float((emb - cudnn).abs().max()) / scale,
+            "min_cos_cudnn": float(cosines(emb, cudnn).min()),
+            "min_cos_f32": float(cosines(emb, f32).min()),
+            "min_cos_eval": float(cosines(emb, ev).min()),
+            "cudnn_min_cos_f32": float(cosines(cudnn, f32).min())}
+    print("serving forward: " + " ".join(f"{k}={v:.6g}" for k, v in perf.items()))
+    require(perf["kernel_vs_cudnn_rel"] <= SERVE_WALK_RTOL,
+            f"kernel walk differs from the cuDNN walk by {perf['kernel_vs_cudnn_rel']:.3e}")
+    require(perf["min_cos_f32"] > 0.99 and perf["min_cos_eval"] > 0.99,
+            "kernel walk's embeddings do not track the float32 walk and the eval forward")
+    del cudnn, ev, f32
+
+    times = {k: [] for k in walks}
+    with torch.no_grad():
+        for name in ("kernel", "cudnn", "eval", "eval", "cudnn", "kernel"):
+            times[name].append(timed_calls(walks[name], images, SERVE_TIMED))
+    mean_ms = {k: sum(v) / len(v) for k, v in times.items()}
+    perf.update({"forward_ms": mean_ms, "img_per_s": {k: SERVE_IMAGES / v * 1e3
+                                                      for k, v in mean_ms.items()},
+                 "forward_ms_blocks": times,
+                 "launches_in_timing": BB.bottleneck_block.launches})
+    print("serving forward timing (ms per forward of 256 images, in turns): " + ", ".join(
+        f"{k} {v:.3f} = {SERVE_IMAGES / v * 1e3:.1f} img/s" for k, v in mean_ms.items())
+        + f"; blocks {times}")
+    print("serving profile: one step = one forward of the kernel walk")
+    perf.update(profile_steps(lambda st, x: (st, walks["kernel"](x)), None, images))
+    print("serving profile: one step = one forward of the cuDNN walk")
+    perf["cudnn_walk"] = profile_steps(lambda st, x: (st, walks["cudnn"](x)), None, images)
+    return {"bottleneck_block": per_forward}, perf, walks["kernel"]
+
+
+def server_phase(forward) -> dict:
+    """The micro-batcher and its HTTP handler over the kernel walk on
+    127.0.0.1: eight concurrent requests of mixed sizes checked against the
+    direct forward, /healthz, then a burst for requests/s whose answers are
+    checked the same way."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from simhand_tpu_torch.serving import MicroBatcher, make_handler
+    from simhand_tpu_torch.serving.embed import _preprocess_fn
+    from simhand_tpu_torch.serving.server import _nearest_resize
+
+    rng = np.random.default_rng(0)
+    sizes = [(128, 128), (96, 160), (200, 200), (64, 64), (128, 100), (150, 90), (128, 128),
+             (256, 192)]
+    imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in sizes]
+    class Server(ThreadingHTTPServer):
+        request_queue_size = 4 * SERVER_BATCH   # a burst's connections wait in the backlog
+
+    batcher = MicroBatcher(lambda x: {"embedding": forward(x)}, SIDE, SERVER_BATCH, 200.0)
+    httpd = Server(("127.0.0.1", 0), make_handler(batcher))
+    port = httpd.server_address[1]
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+
+    def post(img, out, i):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/infer?h={img.shape[0]}&w={img.shape[1]}",
+            data=img.tobytes(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            out[i] = json.loads(resp.read())
+
+    def burst(images):
+        out = [None] * len(images)
+        threads = [threading.Thread(target=post, args=(img, out, i))
+                   for i, img in enumerate(images)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        deadline = time.monotonic() + 300
+        for th in threads:
+            th.join(timeout=max(0.0, deadline - time.monotonic()))
+        require(not any(th.is_alive() for th in threads), "server requests did not finish")
+        return out, time.perf_counter() - t0
+
+    try:
+        results, dt = burst(imgs)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+            require(r.read() == b"ok\n", "/healthz did not answer ok")
+        padded = np.zeros((SERVER_BATCH, SIDE, SIDE, 3), np.uint8)
+        padded[:len(imgs)] = np.stack([_nearest_resize(img, SIDE) for img in imgs])
+        want = forward(_preprocess_fn(SIDE)(padded)).cpu().numpy()
+
+        def row_errors(answers, what):
+            """Each answer's distance from the direct forward's row of its
+            image; fails on a request left unanswered or a row off by more
+            than 1e-4."""
+            errs = []
+            for i, res in enumerate(answers):
+                require(res is not None, f"{what} request {i} was not answered")
+                got, ref = np.asarray(res["embedding"], np.float32), want[i % len(imgs)]
+                require(got.shape == ref.shape, f"{what} request {i}: row of shape {got.shape}")
+                errs.append(float(np.abs(got - ref).max()))
+                require(bool(np.allclose(got, ref, rtol=1e-4, atol=1e-4)),
+                        f"{what} request {i}: row differs from the direct forward by {errs[-1]}")
+            return errs
+
+        errs = row_errors(results, "mixed-size")
+        n_burst = 2 * SERVER_BATCH
+        many = [imgs[i % len(imgs)] for i in range(n_burst)]
+        answers, dt_burst = burst(many)
+        burst_errs = row_errors(answers, "burst")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+    require(not batcher.thread.is_alive(), "the micro-batcher's executor did not stop")
+    perf = {"requests": len(imgs), "max_abs_err": max(errs), "first_burst_s": dt,
+            "burst_requests": n_burst, "burst_s": dt_burst, "burst_max_abs_err": max(burst_errs),
+            "requests_per_s": n_burst / dt_burst}
+    print(f"server: {len(imgs)} concurrent requests answered in {dt:.3f} s, rows within "
+          f"{max(errs):.3e} of the direct forward; burst of {n_burst} requests, every row "
+          f"within {max(burst_errs):.3e} of it, in {dt_burst:.3f} s = "
+          f"{n_burst / dt_burst:.1f} requests/s")
+    return perf
+
+
 def plain_family(state, batch) -> dict:
     """simhand-base steps through kernels #1 and #3."""
     from simhand_tpu_torch.losses import ntxent_kernels as K
@@ -1099,11 +1438,15 @@ def main() -> int:
     bn_report = bn_kernel_phase(args.seed)
     fused_bn_report = fused_bn_kernel_phase(args.seed)
     conv_report = conv_kernel_phase(args.seed)
+    block_report = block_kernel_phase(args.seed)
     state, batch, main_launches, perf = main_path(args.seed)
     bn_launches, bn_perf = epilogue_path(args.seed, state, batch, perf["step0_loss"])
     fused_bn_launches, fused_bn_perf = fused_bn_path(args.seed, state, batch, perf["step0_loss"])
     conv_launches, conv_perf = conv1x1_path(args.seed, state, batch)
     plain_launches = plain_family(state, batch)
+    del state, batch
+    serve_launches, serve_perf, kernel_walk = serving_path(args.seed)
+    server_perf = server_phase(kernel_walk)
 
     kernels = []
     for name, shapes in report.items():
@@ -1141,13 +1484,24 @@ def main() -> int:
                                         "bound_ms", "bound_by", "matmul_ms")},
             "library_ms": None, "at": shapes,
         })
+    main_row = block_report["bottleneck_block"][BLOCK_MAIN_SHAPE]
+    kernels.append({
+        "name": "bottleneck_block", "route": "cuda", "source": SOURCES["bottleneck_block"],
+        "replaces": BLOCK_REPLACES["bottleneck_block"],
+        "launches": serve_launches["bottleneck_block"],
+        **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "cudnn_block_ms", "cudnn_block_device_ms",
+                                    "share_over_one_ulp")},
+        "library_ms": None, "at": block_report["bottleneck_block"],
+    })
     for k in kernels:
         print(f"kernel {k['name']}: launches={k['launches']} max_abs_err={k['max_abs_err']:.3e} "
               f"ms={k['ms']:.4f} device_ms={k['device_ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.4f}")
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"step": perf, "epilogue_step": bn_perf, "fused_bn_step": fused_bn_perf,
-                      "conv1x1_step": conv_perf, "card": card}))
+                      "conv1x1_step": conv_perf, "serving": serve_perf, "server": server_perf,
+                      "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """The CUDA kernels on the card (the NT-Xent kernels of ``csrc/ntxent.cu``,
-the BatchNorm backward reduces of ``csrc/bn_epilogue.cu`` and the 1x1
-convolution with statistics of ``csrc/conv1x1.cu``), against their plain
-PyTorch versions.
+the BatchNorm backward reduces of ``csrc/bn_epilogue.cu``, the 1x1
+convolution with statistics of ``csrc/conv1x1.cu`` and the whole bottleneck
+block of ``csrc/bottleneck_block.cu``), against their plain PyTorch
+versions.
 
 These tests need a CUDA card and ``nvcc``; without them they skip. They
 import no JAX, so they run where the card is, without the repository's
@@ -344,3 +345,76 @@ def test_conv1x1_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                 torch.zeros(32, device="cuda"))
     with pytest.raises(ValueError, match="several devices"):
         C.conv1x1_stats(x2d, w.cpu())
+
+
+# --------------------------------------------------------------------------
+# kernel #12, the whole frozen bottleneck block (ops/bottleneck_block.py)
+# --------------------------------------------------------------------------
+
+def block_operands(gen, imgs, hw, cin, cm):
+    """x and the K-contiguous folded weights of one identity block, with the
+    scales of a folded ResNet block (weights ~ 1/sqrt(fan-in))."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    x = randn(imgs * hw[0] * hw[1], cin).bfloat16()
+    w1 = randn(cm, cin, scale=cin**-0.5).bfloat16()
+    w2 = randn(cm, 9, cm, scale=(9 * cm) ** -0.5).bfloat16()
+    w3 = randn(cin, cm, scale=cm**-0.5).bfloat16()
+    return x, w1, 0.1 * randn(cm), w2, 0.1 * randn(cm), w3, 0.1 * randn(cin)
+
+
+def block_differences(got, want):
+    """(max abs difference, share of elements more than one bf16 ulp apart
+    at the larger magnitude)."""
+    a, b = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    diff = (a - b).abs()
+    return float(diff.max()), float((diff > torch.ldexp(torch.ones_like(a), e - 8)).float().mean())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("imgs,hw,cin,cm", [(256, (4, 4), 2048, 512), (4, (2, 3), 256, 128),
+                                             (9, (7, 7), 2048, 512)],
+                         ids=["layer4-128", "ragged-2x3", "layer4-224-part"])
+def test_bottleneck_block_matches_plain_version(cuda, imgs, hw, cin, cm):
+    """The main path's shape (two images a block, 128 blocks), the JAX test's
+    non-square (2, 3) (one block, padded rows), and 7x7 (49 rows a block,
+    a 64-row tile). y within the JAX test's rtol = atol = 2e-2 of the plain
+    version (float32 sums of the same bf16 products in another order: an
+    element of h1 or h2 that rounds to its other neighbour moves y), and at
+    most 2% of y more than one bf16 ulp from it (measured 0.44-0.51% at
+    layer4 on an H100, four times that)."""
+    from simhand_tpu_torch.ops import bottleneck_block as BB
+
+    args = block_operands(cuda, imgs, hw, cin, cm)
+    BB.reset_launches()
+    got = BB.bottleneck_block(*args, hw=hw)
+    want = BB.bottleneck_block_plain(*args, hw=hw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert BB.bottleneck_block.launches == 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    err, share = block_differences(got, want)
+    print(f"bottleneck_block {imgs}x{hw} {cin}/{cm}: max abs err {err:.3e}, "
+          f"share over one ulp {share:.3e}")
+    assert share <= 2e-2
+
+
+@pytest.mark.gpu
+def test_bottleneck_block_refuses_what_the_kernel_does_not_take(cuda):
+    from simhand_tpu_torch.ops import bottleneck_block as BB
+
+    x, w1, b1, w2, b2, w3, b3 = block_operands(cuda, 2, (4, 4), 256, 128)
+    with pytest.raises(TypeError, match="bfloat16"):
+        BB.bottleneck_block(x.float(), w1, b1, w2, b2, w3, b3, hw=(4, 4))
+    with pytest.raises(ValueError, match="w2"):
+        BB.bottleneck_block(x, w1, b1, w2[:, :, :96], b2, w3, b3, hw=(4, 4))
+    with pytest.raises(ValueError, match="multiples of 64"):
+        BB.bottleneck_block(x[:, :96].contiguous(), w1[:, :96].contiguous(), b1, w2, b2,
+                            w3[:96].contiguous(), b3[:96].contiguous(), hw=(4, 4))
+    with pytest.raises(ValueError, match="shared memory"):     # layer1 at 128x128
+        args = block_operands(cuda, 1, (32, 32), 256, 64)
+        BB.bottleneck_block(*args, hw=(32, 32))
+    with pytest.raises(ValueError, match="several devices"):
+        BB.bottleneck_block(x, w1.cpu(), b1, w2, b2, w3, b3, hw=(4, 4))
