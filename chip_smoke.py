@@ -46,12 +46,15 @@
    torch.batch_norm_backward_reduce, one PyTorch call of the same function;
 8. holds kernels #10 and #11 (the 1x1 convolution with BatchNorm
    statistics, csrc/conv1x1.cu) against their plain versions (cuBLAS in
-   float32, TF32 off) at the six kinds of fused site of the ResNet-50 step
-   and a ragged 1,000 x 96 -> 40: every y element within one bf16 ulp (plus
-   2^-16 * sum |x||w| for the float32 sums' order), s1/s2 within rel 1e-5 of
-   the float64 sums of the kernel's own y and within rel 1e-3 of the plain
-   version's; times each (CUDA events, torch.profiler, the plain version,
-   the bound) beside cuBLAS's x @ w.T of the same shape;
+   float32, TF32 off) at the six kinds of fused site of the ResNet-50 step,
+   a ragged 1,000 x 96 -> 40 and 65,535 x 128 + 1 rows, 8 -> 8: every y
+   element within one bf16 ulp (plus 2^-16 * sum |x||w| for the float32
+   sums' order), s1/s2 within rel 1e-5 of the float64 sums of the kernel's
+   own y and within rel 1e-3 of the plain version's, a second launch equal
+   bit for bit; times each (CUDA events; torch.profiler, the main kernel
+   and the column-sum pass apart; the plain version; the bound and its
+   share) beside cuBLAS's x @ w.T of the same shape (events and profiler)
+   and their ratio;
 9. runs the step with bn_fused="pallas": its step-0 loss must equal
    bn_fused=True's bit for bit and the exact route's within rel 5e-3 (the
    reference's affine rounds A and B to bf16 at every site), its
@@ -136,14 +139,15 @@ BN_PER_STEP = {"masked_dual_reduce": 33, "masked_dx": 33,
 FUSED_BN_REPLACES = {"bn_backward_reduces": "simhand_tpu/models/fused_bn.py:182"}
 FUSED_BN_PER_STEP = 53
 # kernels #10/#11: the fused conv1x1+BN sites of the step at
-# conv1x1_fuse_min_cin=512 as (label, M, Cin, Cout, sites per step), and a
-# ragged shape; main shape the most frequent site
+# conv1x1_fuse_min_cin=512 as (label, M, Cin, Cout, sites per step), a
+# ragged shape and one with more rows than 65,535 tiles of 128; main shape
+# the most frequent site
 CONV_REPLACES = {"conv1x1_stats": "simhand_tpu/ops/conv1x1.py:128",
                  "conv1x1_bn_relu_stats": "simhand_tpu/ops/conv1x1.py:133"}
 CONV_SHAPES = (("layer2_conv1", 131072, 512, 128, 3), ("layer3_0_conv1", 131072, 512, 256, 1),
                ("layer3_conv1", 32768, 1024, 256, 5), ("layer4_0_conv1", 32768, 1024, 512, 1),
                ("layer4_conv1", 8192, 2048, 512, 2), ("layer4_conv3", 8192, 512, 2048, 3),
-               ("ragged", 1000, 96, 40, 0))
+               ("ragged", 1000, 96, 40, 0), ("large_m", 65535 * 128 + 1, 8, 8, 0))
 CONV_MAIN_SHAPE = "layer3_conv1"
 CONV_FUSE_MIN_CIN, CONV_PER_STEP = 512, 15
 # kernel #12: identity blocks of ResNet-50 as (label, images, (H, W), C, Cm);
@@ -229,9 +233,10 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over iters calls: the torch.profiler time of
-    the kernels it launched, without the host's enqueue time or the gaps."""
+def device_ms_by_kernel(fn, iters: int) -> dict:
+    """Mean device time of fn() over iters calls, by kernel name: the
+    torch.profiler time of the kernels it launched, without the host's
+    enqueue time or the gaps."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -242,10 +247,15 @@ def device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    require(total_us > 0, "the profiler saw no device time")
-    return total_us / iters / 1e3
+    times = {e.key: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA}
+    require(sum(times.values()) > 0, "the profiler saw no device time")
+    return times
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of fn() over iters calls, all its kernels together."""
+    return sum(device_ms_by_kernel(fn, iters).values())
 
 
 def bound(name: str, m: int, n: int) -> tuple[float, str]:
@@ -415,6 +425,7 @@ def profile_steps(step, state, batch, n: int = PROFILED_STEPS) -> dict:
     for group, names in (("ntxent", ("ntxent_tile_kernel", "sum_splits")),
                          ("bn_epilogue", ("bn_masked_", "bn_dual_reduce", "bn_sum_partials")),
                          ("conv1x1", ("conv1x1_",)),
+                         ("conv1x1_sum", ("conv1x1_sum_partials",)),
                          ("bottleneck_block", ("bottleneck_block_kernel",))):
         mine = [e for e in kernels if any(k in e.key for k in names)]
         ms = sum(e.self_device_time_total for e in mine) / n / 1e3
@@ -858,14 +869,26 @@ def conv_kernel_phase(seed: int) -> dict:
             row["stats_rel_err_own_y"], row["stats_rel_err_plain"] = max(own), max(vs_plain)
             require(max(own) <= 1e-5, f"{name} {label}: s1/s2 vs its own y {own}")
             require(max(vs_plain) <= 1e-3, f"{name} {label}: s1/s2 vs the plain version {vs_plain}")
-            del y, s1, s2, py, ps1, ps2, a, b, e, ulp, diff, floor, y64
+            again = kernel()
+            torch.cuda.synchronize()
+            require(all(torch.equal(u, v) for u, v in zip(again, (y, s1, s2))),
+                    f"{name} {label}: a second launch gave other bits")
+            del y, s1, s2, py, ps1, ps2, a, b, e, ulp, diff, floor, y64, again
             iters = 50 if m <= 32768 else 20
             row["ms"] = cuda_ms(kernel, iters)
-            row["device_ms"] = device_ms(kernel, 10)
+            by_kernel = device_ms_by_kernel(kernel, 10)
+            row["device_ms"] = sum(by_kernel.values())
+            row["kernel_device_ms"] = sum(v for k, v in by_kernel.items()
+                                          if "conv1x1_stats_kernel" in k)
+            row["sum_device_ms"] = sum(v for k, v in by_kernel.items()
+                                       if "conv1x1_sum_partials" in k)
             row["plain_ms"] = cuda_ms(plain, 5)
             row["matmul_ms"] = cuda_ms(lambda: x2d @ w.T, iters)
+            row["matmul_device_ms"] = device_ms(lambda: x2d @ w.T, 10)
+            row["ratio_to_matmul"] = row["device_ms"] / row["matmul_ms"]
             row["bound_ms"], row["bound_by"] = conv_bound(m, cin, cout,
                                                           name == "conv1x1_bn_relu_stats")
+            row["bound_share"] = row["bound_ms"] / row["device_ms"]
             report[name][label] = row
             print(f"conv kernel {name} {label} ({m}x{cin}->{cout}): " + " ".join(
                 f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()))
@@ -1480,8 +1503,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES["conv1x1"],
             "replaces": CONV_REPLACES[name], "launches": conv_launches[name],
-            **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
-                                        "bound_ms", "bound_by", "matmul_ms")},
+            **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "kernel_device_ms",
+                                        "sum_device_ms", "plain_ms", "bound_ms", "bound_by",
+                                        "matmul_ms", "ratio_to_matmul")},
             "library_ms": None, "at": shapes,
         })
     main_row = block_report["bottleneck_block"][BLOCK_MAIN_SHAPE]

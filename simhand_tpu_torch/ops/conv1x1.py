@@ -14,20 +14,22 @@ as the reference's epilogue takes them.
 On CPU tensors a wrapper calls its plain version (any float dtype); on CUDA
 tensors it launches its kernel from ``csrc/conv1x1.cu`` on the current
 stream or raises, and adds one to its ``launches`` count at each launch and
-nowhere else. The kernels take bf16 only: Cin and Cout multiples of 8, any M.
+nowhere else. The kernels (a TMA + wgmma GEMM on a persistent grid of
+two-CTA clusters) take bf16 only: Cin and Cout multiples of 8 (TMA needs
+16-byte row strides), any M. Their column sums go through a float32 scratch
+of one (2, Cout) row per row group of the grid, sized by the library for the
+current device.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 
 from simhand_tpu_torch import native
 from simhand_tpu_torch.device import on_cpu
 
-_BM = 128         # rows of a block's tile in csrc/conv1x1.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "conv1x1_stats": [_P, _P] + [_I] * 3 + [_P] * 4,
@@ -42,6 +44,8 @@ def _library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    lib.conv1x1_partial_floats.argtypes = [_I, _I]
+    lib.conv1x1_partial_floats.restype = ctypes.c_int
     lib.conv1x1_error_string.argtypes = [ctypes.c_int]
     lib.conv1x1_error_string.restype = ctypes.c_char_p
     return lib
@@ -78,8 +82,6 @@ def _check(x2d, w, consts):
                          f"got {tuple(w.shape)}")
     if cin % 8 or cout % 8:
         raise ValueError(f"Cin={cin} and Cout={cout} must be multiples of 8")
-    if math.ceil(m / _BM) > 65535:
-        raise ValueError(f"M={m} exceeds the grid ({65535 * _BM} rows)")
     for name, t in consts.items():
         if t.dtype != torch.float32 or tuple(t.shape) != (cin,) or not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous float32 ({cin},) tensor")
@@ -90,12 +92,15 @@ def _launch(name, x2d, w, consts):
     m, cout = x2d.shape[0], w.shape[0]
     y = x2d.new_empty((m, cout))
     out = x2d.new_empty((2, cout), dtype=torch.float32)
-    # per row tile; freed on return (the caching allocator hands it only to
-    # work queued later on this stream, which runs after both passes)
-    tiles = math.ceil(m / _BM)
-    partial = out if tiles == 1 else out.new_empty((tiles, 2, cout))
     lib = _library()
     with torch.cuda.device(x2d.device):
+        # one (2, Cout) row per row group of the grid; freed on return (the
+        # caching allocator hands it only to work queued later on this
+        # stream, which runs after both passes)
+        floats = lib.conv1x1_partial_floats(m, cout)
+        if floats < 0:
+            raise RuntimeError(f"{name}: cannot read the device's cluster occupancy")
+        partial = out.new_empty(floats)
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         err = getattr(lib, name)(x2d.data_ptr(), w.data_ptr(),
                                  *[t.data_ptr() for t in consts.values()],

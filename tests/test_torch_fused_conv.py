@@ -63,16 +63,18 @@ def assert_stats(y, s1, s2, want_s1, want_s2):
         assert float((got64 - want).abs().max()) <= tol * float(want.abs().max())
 
 
-# the shapes of tests/test_fused_conv.py and tests/test_conv1x1.py
-CONV_SHAPES = {"f32": (64, 16, 8), "bf16": (1024, 64, 32)}
+# the shapes of tests/test_fused_conv.py and tests/test_conv1x1.py, and the
+# ragged ones of the kernels' card tests (tests/test_torch_gpu_kernels.py)
+CONV_CASES = {"f32": ("f32", (64, 16, 8)), "bf16": ("bf16", (1024, 64, 32)),
+              "bf16-1000x96-40": ("bf16", (1000, 96, 40)), "bf16-72x8-8": ("bf16", (72, 8, 8))}
 
 
 @pytest.mark.parametrize("affine", [False, True], ids=["stats", "bn_relu_stats"])
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_conv1x1_plain_versions_match_pallas(dtype, affine):
+@pytest.mark.parametrize("dtype,shape", CONV_CASES.values(), ids=CONV_CASES)
+def test_conv1x1_plain_versions_match_pallas(dtype, shape, affine):
     rng = np.random.default_rng(0)
     jdt, tdt = DTYPES[dtype]
-    m, cin, cout = CONV_SHAPES[dtype]
+    m, cin, cout = shape
     x = rng.normal(size=(m, cin)).astype(np.float32)
     w = (rng.normal(size=(cin, cout)) * 0.1).astype(np.float32)
     A = (rng.normal(size=cin) * 0.3 + 1).astype(np.float32)

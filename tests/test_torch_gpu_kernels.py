@@ -295,20 +295,31 @@ def assert_stats_of(y, s1, s2):
         assert float((got.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
+def conv1x1_operands(gen, m, cin, cout):
+    x2d = torch.randn(m, cin, device="cuda", generator=gen).bfloat16()
+    w = (torch.randn(cout, cin, device="cuda", generator=gen) / cin**0.5).bfloat16()
+    A = 1 + 0.3 * torch.randn(cin, device="cuda", generator=gen)
+    B = 0.1 * torch.randn(cin, device="cuda", generator=gen)
+    return x2d, w, A, B
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,cin,cout", [(1000, 96, 40), (300, 200, 136), (128, 8, 8)],
-                         ids=["1000x96-40", "300x200-136", "one-tile"])
+@pytest.mark.parametrize("m,cin,cout", [
+    (1000, 96, 40), (300, 200, 136), (128, 8, 8), (72, 8, 8), (40, 64, 16), (1000, 256, 2048),
+    (20000, 512, 256), (40000, 64, 128), (65535 * 128 + 1, 8, 8),
+], ids=["1000x96-40", "300x200-136", "one-tile", "72x8-8", "m-below-64", "ragged-m-2048",
+        "persistent-256", "persistent-128", "past-old-grid"])
 def test_conv1x1_kernels_match_plain_versions(cuda, m, cin, cout):
-    """A ragged M, a K that is not a multiple of the 32-column step, an N of
-    two column tiles, one row tile. The statistics against the plain
-    version's to rel 1e-3 of the largest (a y element that rounds to the
-    neighbouring bf16 value moves them)."""
+    """The edges of the TMA + wgmma design: K below the 64-wide box (8) and
+    K not a multiple of it (96, 200); N below a 128-wide tile (40, 16), of
+    two 256-wide tiles (136) and of eight (2,048) at a ragged M; one row
+    tile, M below a warpgroup's 64 rows; more tiles than the card has SMs
+    at both tile widths; more rows than 65,535 tiles of 128. The statistics
+    against the plain version's to rel 1e-3 of the largest (a y element
+    that rounds to the neighbouring bf16 value moves them)."""
     from simhand_tpu_torch.ops import conv1x1 as C
 
-    x2d = torch.randn(m, cin, device="cuda", generator=cuda).bfloat16()
-    w = (torch.randn(cout, cin, device="cuda", generator=cuda) / cin**0.5).bfloat16()
-    A = 1 + 0.3 * torch.randn(cin, device="cuda", generator=cuda)
-    B = 0.1 * torch.randn(cin, device="cuda", generator=cuda)
+    x2d, w, A, B = conv1x1_operands(cuda, m, cin, cout)
     C.reset_launches()
     xa = torch.relu(x2d.float() * A + B).bfloat16()
     for got, want, xin in ((C.conv1x1_stats(x2d, w), C.conv1x1_stats_plain(x2d, w), x2d),
@@ -322,6 +333,21 @@ def test_conv1x1_kernels_match_plain_versions(cuda, m, cin, cout):
         for a, b in zip((s1, s2), want[1:]):
             assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
     assert [fn.launches for fn in C.KERNELS] == [1, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,cin,cout", [(20000, 512, 256), (40000, 64, 128), (1000, 96, 40)],
+                         ids=["persistent-256", "persistent-128", "1000x96-40"])
+def test_conv1x1_kernels_repeat_bit_for_bit(cuda, m, cin, cout):
+    """No atomics and a fixed order of every sum: a second launch on the
+    same inputs gives the same y, s1 and s2 bit for bit."""
+    from simhand_tpu_torch.ops import conv1x1 as C
+
+    x2d, w, A, B = conv1x1_operands(cuda, m, cin, cout)
+    for kernel in (lambda: C.conv1x1_stats(x2d, w), lambda: C.conv1x1_bn_relu_stats(x2d, w, A, B)):
+        first, second = kernel(), kernel()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.gpu
