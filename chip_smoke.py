@@ -69,24 +69,42 @@
    three of the step's sites, each within 1e-2 of its norm; five steps as
    above with kernel #10 launched 15 times per step, #11 never, #2/#4 once;
    timed in turns with the exact route, a torch.profiler breakdown;
-11. holds kernel #12 (one whole frozen identity bottleneck block,
-   csrc/bottleneck_block.cu) against its plain version in bf16 at ResNet-50's
-   layer4 at 128x128 and 224x224 and layer3 at 128x128 (256 images each) and
-   the JAX test's ragged (2, 3) x 4: y within rtol = atol = 2e-2 and at most
-   BLOCK_ULP_SHARE of it more than one bf16 ulp away; layer1 at 128x128 must
-   be refused; times it (CUDA events, torch.profiler, the plain version, the
-   bound) beside the same block through the walk's own cuDNN route (CUDA
-   events and torch.profiler);
-12. runs the frozen bf16 serving forward (ResNet-50, 128x128, B = 256, BN
-   folded, random weights and BatchNorm statistics from ``--seed``) with
-   layer4_1/2 through kernel #12: two launches per forward, embeddings
-   against the same walk through cuDNN, the float32 folded walk and the
-   model's own bf16 eval forward; img/s of the three timed in turns, a
-   torch.profiler breakdown of the kernel walk and of the cuDNN walk;
-13. serves that forward through the micro-batcher on 127.0.0.1 (batch 128):
+11. holds the convolution kernel (csrc/conv_bias.cu: a bf16 implicit GEMM
+   whose float32 sum takes the bias, the residual and ReLU before one
+   rounding) against its plain version at each distinct convolution of the
+   serving forward (ResNet-50, 128x128, B = 256: the 7x7/2 stem, 1x1 at
+   layer1, layer3 and layer4, 3x3 at layer1 and layer4, layer2_0's 3x3/2 and
+   its 1x1/2 downsample, layer4's conv3 with the residual) and a ragged
+   shape: every y element within one bf16 ulp plus 2^-16 * sum |x||w|, a
+   second launch equal bit for bit; times it (CUDA events, torch.profiler,
+   the plain version, the bound) beside bf16 cuDNN F.conv2d with the bias;
+12. holds kernel #12 (one whole frozen identity bottleneck block, three
+   launches of that kernel) against its plain version in bf16 at ResNet-50's
+   layer4 at 128x128 and 224x224, layer3 and layer1 at 128x128 and layer2 at
+   224x224 (256 images each) and the JAX test's ragged (2, 3) x 4: y within
+   rtol = atol = 2e-2 and at most BLOCK_ULP_SHARE of it more than one bf16
+   ulp away; times it (CUDA events, torch.profiler, the plain version, the
+   bound) beside the same block through cuDNN (CUDA events and
+   torch.profiler);
+13. runs the frozen bf16 serving forward (ResNet-50, 128x128, B = 256, BN
+   folded, random weights and BatchNorm statistics from ``--seed``), every
+   convolution on the kernel of phase 11 (53 launches per forward) and
+   layer4_1/2 through kernel #12 (2 per forward), with no mixed bf16 +
+   float32 add in its profile: embeddings against the bf16 cuDNN walk (the
+   yardstick, built here), the float32 folded walk and the model's own bf16
+   eval forward; img/s of the three timed in turns, a torch.profiler
+   breakdown of the kernel walk and of the cuDNN walk;
+14. serves that forward through the micro-batcher on 127.0.0.1 (batch 128):
    eight concurrent requests of mixed sizes, each row equal to the direct
    forward on the same padded batch, /healthz, then requests/s of a burst
-   of 256 whose every answer is checked the same way.
+   of 256 whose every answer is checked the same way;
+15. holds the float32 kernels #10 and #11 (csrc/conv1x1.cu, CUDA-core
+   float32, TF32 off) against their plain versions at the six kinds of
+   fused site: y within 1e-5 of its largest element, s1/s2 within rel 1e-5
+   of the float64 sums of the kernel's own y, a second launch equal bit for
+   bit; times each beside cuBLAS's float32 x @ w.T; then two float32 steps
+   with conv1x1_fuse_min_cin=512: step-0 loss within rel 1e-5 of the float32
+   exact step's, #10 launched 15 times per step.
 
 Any failure ends the run with a non-zero exit code. The last line of the
 output is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -113,7 +131,7 @@ BF16_TENSOR_OPS_PER_S = 989e12
 SOURCES = {"ntxent": "simhand_tpu_torch/csrc/ntxent.cu",
            "bn_epilogue": "simhand_tpu_torch/csrc/bn_epilogue.cu",
            "conv1x1": "simhand_tpu_torch/csrc/conv1x1.cu",
-           "bottleneck_block": "simhand_tpu_torch/csrc/bottleneck_block.cu"}
+           "conv_bias": "simhand_tpu_torch/csrc/conv_bias.cu"}
 REPLACES = {
     "ntxent_denominator": "simhand_tpu/losses/pallas_ntxent.py:76",
     "weighted_ntxent_denominator": "simhand_tpu/losses/pallas_ntxent.py:154",
@@ -150,25 +168,50 @@ CONV_SHAPES = (("layer2_conv1", 131072, 512, 128, 3), ("layer3_0_conv1", 131072,
                ("ragged", 1000, 96, 40, 0), ("large_m", 65535 * 128 + 1, 8, 8, 0))
 CONV_MAIN_SHAPE = "layer3_conv1"
 CONV_FUSE_MIN_CIN, CONV_PER_STEP = 512, 15
+# the convolution kernel at each distinct convolution of the serving forward
+# (ResNet-50, 128x128, B = 256) as (label, N, H, W, Cin, Cout, kernel,
+# stride, padding, relu, residual), and a ragged one; main shape the 3x3 of
+# #12 (layer4)
+CONV_BIAS_REPLACES = {"conv_bias_act": "simhand_tpu/ops/bottleneck_block.py:92"}
+CONV_BIAS_SHAPES = (
+    ("stem", 256, 128, 128, 3, 64, 7, 2, ((3, 3), (3, 3)), True, False),
+    ("layer1_1x1", 256, 32, 32, 256, 64, 1, 1, "SAME", True, False),
+    ("layer1_3x3", 256, 32, 32, 64, 64, 3, 1, "SAME", True, False),
+    ("layer2_0_3x3s2", 256, 32, 32, 128, 128, 3, 2, "SAME", True, False),
+    ("layer2_0_down", 256, 32, 32, 256, 512, 1, 2, "SAME", False, False),
+    ("layer3_1x1", 256, 8, 8, 1024, 256, 1, 1, "SAME", True, False),
+    ("layer4_1x1", 256, 4, 4, 2048, 512, 1, 1, "SAME", True, False),
+    ("layer4_3x3", 256, 4, 4, 512, 512, 3, 1, "SAME", True, False),
+    ("layer4_conv3_res", 256, 4, 4, 512, 2048, 1, 1, "SAME", True, True),
+    ("ragged", 3, 9, 11, 40, 72, 3, 2, "SAME", True, True))
+CONV_BIAS_MAIN_SHAPE = "layer4_3x3"
+# launches per serving forward: the stem, 16 blocks x 3 and 4 downsamples
+CONV_BIAS_PER_FORWARD = 53
 # kernel #12: identity blocks of ResNet-50 as (label, images, (H, W), C, Cm);
 # main shape layer4 of the serving forward at 128x128, B = 256
 BLOCK_REPLACES = {"bottleneck_block": "simhand_tpu/ops/bottleneck_block.py:92"}
 BLOCK_SHAPES = (("layer4_128", 256, (4, 4), 2048, 512), ("layer4_224", 256, (7, 7), 2048, 512),
-                ("layer3_128", 256, (8, 8), 1024, 256), ("ragged_2x3", 4, (2, 3), 256, 128))
+                ("layer3_128", 256, (8, 8), 1024, 256), ("layer1_128", 256, (32, 32), 256, 64),
+                ("layer2_224", 256, (28, 28), 512, 128), ("ragged_2x3", 4, (2, 3), 256, 128))
 BLOCK_MAIN_SHAPE = "layer4_128"
-BLOCK_REFUSED = ("layer1_128", 1, (32, 32), 256, 64)   # h1 and h2 outgrow shared memory
 # y against the plain version: the JAX test's rtol = atol = 2e-2, and the
 # share of elements more than one bf16 ulp away (float32 sums in another
 # order round an element of h1 or h2 to its other neighbour, which moves y;
-# measured 0.44-0.51% at layer4 on an H100): four times that
+# measured 0.44-0.51% at layer4 on an H100 by a one-launch design): four
+# times that
 BLOCK_RTOL, BLOCK_ULP_SHARE = 2e-2, 2e-2
 # the serving forward: ResNet-50 at SIDE, SERVE_IMAGES images, the blocks of
 # scripts/bench_block.py:64-65 through #12; the server's batch
 SERVE_BLOCKS, SERVE_IMAGES, SERVE_TIMED, SERVER_BATCH = ("layer4_1", "layer4_2"), 256, 10, 128
 # embeddings of the kernel walk against the cuDNN walk, relative to the
-# largest: the two differ by conv3's rounding before the shortcut's add at
-# two blocks and by the sums' order (CPU, ResNet-50 at 64x64: 3.0e-3)
+# largest: the two differ by the cuDNN walk's second rounding at every
+# convolution, by conv3's rounding before the shortcut's add at two blocks
+# and by the sums' order (CPU, ResNet-50 at 64x64: 3.0e-3)
 SERVE_WALK_RTOL = 1e-2
+# float32 #10/#11 (F2): the step's fused sites, y against cuBLAS's float32
+# product (TF32 off) relative to its largest element, the step-0 loss
+# against the float32 exact step's, and the float32 steps run
+F32_Y_RTOL, F32_LOSS_RTOL, F32_STEPS = 1e-5, 1e-5, 2
 SHAPES = (("512x512", 512, 512, 0), ("512x16384", 512, 16384, 4096),
           ("16384x16384", 16384, 16384, 0))
 MAIN_SHAPE = "512x512"
@@ -419,14 +462,19 @@ def profile_steps(step, state, batch, n: int = PROFILED_STEPS) -> dict:
         ms = e.self_device_time_total / n / 1e3
         print(f"profile: {ms:8.3f} ms/step {100 * ms / (busy * 1e3):5.1f}%  "
               f"x{e.count // n}  {e.key[:100]}")
+    # a PyTorch add computed in float32 (a bf16 tensor plus a float32 one);
+    # the bf16 add's kernel is CUDAFunctor_add<c10::BFloat16>
+    mixed = [e for e in kernels if "CUDAFunctor_add" in e.key and "BFloat16" not in e.key]
     out = {"profile_wall_ms": wall * 1e3, "profile_kernel_ms": busy * 1e3,
-           "profile_idle_share": 1 - busy / wall}
+           "profile_idle_share": 1 - busy / wall,
+           "profile_float_add_launches": sum(e.count for e in mixed) // n,
+           "profile_float_add_ms": sum(e.self_device_time_total for e in mixed) / n / 1e3}
     # the port's kernels and their second passes, by source
     for group, names in (("ntxent", ("ntxent_tile_kernel", "sum_splits")),
                          ("bn_epilogue", ("bn_masked_", "bn_dual_reduce", "bn_sum_partials")),
                          ("conv1x1", ("conv1x1_",)),
                          ("conv1x1_sum", ("conv1x1_sum_partials",)),
-                         ("bottleneck_block", ("bottleneck_block_kernel",))):
+                         ("conv_bias", ("conv_bias_kernel",))):
         mine = [e for e in kernels if any(k in e.key for k in names)]
         ms = sum(e.self_device_time_total for e in mine) / n / 1e3
         print(f"profile: {group} kernels {ms:.4f} ms/step "
@@ -443,27 +491,28 @@ def step_config(**kw):
                                        image_side=float(SIDE), use_pallas=True), **kw})
 
 
-def new_state(seed: int, **model_kw):
-    """A bf16 ResNet-50 ContrastiveModel (with the encoder options model_kw)
-    and its train state, initialised from seed on the card."""
+def new_state(seed: int, dtype=None, **model_kw):
+    """A ResNet-50 ContrastiveModel computing in dtype (bf16 by default; with
+    the encoder options model_kw) and its train state, initialised from
+    seed on the card."""
     import torch
 
     from simhand_tpu_torch.models import ContrastiveModel
     from simhand_tpu_torch.train import OptimizerConfig, create_train_state
 
-    model = ContrastiveModel(RESNET, dtype=torch.bfloat16, **model_kw)
+    model = ContrastiveModel(RESNET, dtype=dtype or torch.bfloat16, **model_kw)
     opt_cfg = OptimizerConfig(train_iters_per_epoch=1000, epochs=100, warmup_epochs=10)
     return create_train_state(model, opt_cfg, seed, input_shape=(2, SIDE, SIDE, 3),
                               device="cuda")
 
 
-def run_steps(step, state, batch, what: str, handles=()):
-    """STEPS train steps: finite losses, a parameter change at step 1; the
-    hooks of ``handles`` are removed after step 0."""
+def run_steps(step, state, batch, what: str, handles=(), steps: int = STEPS):
+    """``steps`` train steps: finite losses, a parameter change at step 1;
+    the hooks of ``handles`` are removed after step 0."""
     import torch
 
     losses = []
-    for i in range(STEPS):
+    for i in range(steps):
         before = [p.detach().clone() for p in state.params] if i == 1 else None
         state, metrics = step(state, batch)
         losses.append(float(metrics["contrastive_loss"]))
@@ -1105,6 +1154,206 @@ def conv1x1_path(seed: int, exact_state, batch) -> tuple[dict, dict]:
     return launches, perf
 
 
+def conv_f32_bound(m: int, cin: int, cout: int, affine: bool) -> tuple[float, str]:
+    """Least time of float32 #10 (#11 with affine): bytes (x, w read once, y
+    and the sums written; A and B read) over the memory rate, or the GEMM's
+    2*M*Cin*Cout operations and the statistics' (and the affine's) three a
+    y (x) element over the float32 rate, the larger."""
+    nbytes = 4 * (m * cin + cout * cin + m * cout + 2 * cout + (2 * cin if affine else 0))
+    ops = 2.0 * m * cin * cout + 3.0 * m * cout + (3.0 * m * cin if affine else 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def conv_f32_phase(seed: int) -> dict:
+    """Float32 kernels #10 and #11 against their plain versions at the six
+    fused-site shapes of CONV_SHAPES, beside cuBLAS's float32 x @ w.T."""
+    import torch
+
+    from simhand_tpu_torch.ops import conv1x1 as C
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    report = {f"{name}_f32": {} for name in CONV_REPLACES}
+    for label, m, cin, cout, per_step in CONV_SHAPES:
+        if per_step == 0:
+            continue
+        x2d = torch.randn(m, cin, device="cuda", generator=gen)
+        w = torch.randn(cout, cin, device="cuda", generator=gen) / math.sqrt(cin)
+        A = 1 + 0.3 * torch.randn(cin, device="cuda", generator=gen)
+        B = 0.1 * torch.randn(cin, device="cuda", generator=gen)
+        cases = {
+            "conv1x1_stats_f32": (lambda: C.conv1x1_stats(x2d, w),
+                                  lambda: C.conv1x1_stats_plain(x2d, w)),
+            "conv1x1_bn_relu_stats_f32": (lambda: C.conv1x1_bn_relu_stats(x2d, w, A, B),
+                                          lambda: C.conv1x1_bn_relu_stats_plain(x2d, w, A, B)),
+        }
+        for name, (kernel, plain) in cases.items():
+            (y, s1, s2), (py, ps1, ps2) = kernel(), plain()
+            torch.cuda.synchronize()
+            require(y.dtype == torch.float32, f"{name} {label}: y is {y.dtype}")
+            err = float((y - py).abs().max())
+            row = {"max_abs_err": err, "y_rel_err": err / float(py.abs().max())}
+            require(row["y_rel_err"] <= F32_Y_RTOL, f"{name} {label}: y differs {row}")
+            y64 = y.double()
+            own = [float((u.double() - t).abs().max() / t.abs().max())
+                   for u, t in ((s1, y64.sum(0)), (s2, (y64 * y64).sum(0)))]
+            vs_plain = [float((u - t).abs().max() / t.abs().max())
+                        for u, t in ((s1, ps1), (s2, ps2))]
+            row["stats_rel_err_own_y"], row["stats_rel_err_plain"] = max(own), max(vs_plain)
+            require(max(own) <= 1e-5, f"{name} {label}: s1/s2 vs its own y {own}")
+            again = kernel()
+            torch.cuda.synchronize()
+            require(all(torch.equal(u, v) for u, v in zip(again, (y, s1, s2))),
+                    f"{name} {label}: a second launch gave other bits")
+            del y, s1, s2, py, ps1, ps2, y64, again
+            row["ms"] = cuda_ms(kernel, 10)
+            by_kernel = device_ms_by_kernel(kernel, 5)
+            row["device_ms"] = sum(by_kernel.values())
+            row["sum_device_ms"] = sum(v for k, v in by_kernel.items()
+                                       if "conv1x1_sum_partials" in k)
+            row["plain_ms"] = cuda_ms(plain, 5)
+            row["matmul_ms"] = cuda_ms(lambda: x2d @ w.T, 10)
+            row["matmul_device_ms"] = device_ms(lambda: x2d @ w.T, 5)
+            row["ratio_to_matmul"] = row["device_ms"] / row["matmul_device_ms"]
+            row["bound_ms"], row["bound_by"] = conv_f32_bound(m, cin, cout, "bn_relu" in name)
+            row["bound_share"] = row["bound_ms"] / row["device_ms"]
+            report[name][label] = row
+            print(f"conv kernel {name} {label} ({m}x{cin}->{cout}): " + " ".join(
+                f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()))
+        del cases, x2d, w
+        torch.cuda.empty_cache()
+    return report
+
+
+def conv1x1_f32_path(seed: int, batch) -> tuple[dict, dict]:
+    """F32_STEPS float32 steps with conv1x1_fuse_min_cin=512 (float32 #10):
+    the step-0 loss against the float32 exact step's."""
+    import torch
+
+    from simhand_tpu_torch.ops import conv1x1 as C
+    from simhand_tpu_torch.train import make_train_step
+
+    cfg = step_config()
+    exact = new_state(seed, dtype=torch.float32)
+    le = step0(exact, batch, cfg)[0]
+    del exact
+    state = new_state(seed, dtype=torch.float32, conv1x1_fuse_min_cin=CONV_FUSE_MIN_CIN)
+    lc = step0(state, batch, cfg)[0]
+    rel = abs(lc - le) / abs(le)
+    step = make_train_step(state.model, cfg)
+    C.reset_launches()
+    state, losses = run_steps(step, state, batch, "float32 conv1x1", steps=F32_STEPS)
+    launches = {f"{fn.__name__}_f32": fn.launches for fn in C.KERNELS}
+    state, _, dt = timed(step, state, batch, F32_STEPS)
+    print(f"float32 conv1x1 path: step-0 loss {lc!r}, float32 exact {le!r} (rel {rel:.3e}); "
+          f"losses {losses}; launches after {F32_STEPS} steps {launches}; "
+          f"{dt * 1e3:.2f} ms/step")
+    require(rel <= F32_LOSS_RTOL, f"float32 conv1x1 step-0 loss {lc} differs from the float32 "
+            f"exact step's {le}")
+    require(launches == {"conv1x1_stats_f32": CONV_PER_STEP * F32_STEPS,
+                         "conv1x1_bn_relu_stats_f32": 0}, f"float32 #10 launches {launches}")
+    del state, step
+    torch.cuda.empty_cache()
+    return launches, {"step0_loss": lc, "exact_step0_loss": le, "step0_loss_rel_exact": rel,
+                      "losses": losses, "step_ms": dt * 1e3}
+
+
+def read_pixels(size: int, out: int, k: int, stride: int, lo: int) -> int:
+    """How many of a spatial dimension's `size` positions a convolution's
+    windows read (a 1x1/2 reads every other one)."""
+    return len({stride * o + t - lo for o in range(out) for t in range(k)} & set(range(size)))
+
+
+def conv_bias_bound(x_elems: int, m: int, cout: int, k: int, res: bool) -> tuple[float, str]:
+    """Least time of the convolution kernel: bytes (the input pixels its
+    windows read, the weight, the bias and the residual read once, y written
+    once) over the memory rate, or the larger of the 2*M*Cout*K products
+    over the bf16 tensor peak and the float32 epilogue (bias, residual,
+    ReLU: 2 + res operations per output) over the float32 rate, the
+    larger."""
+    nbytes = 2 * x_elems + 2 * cout * k + 4 * cout + 2 * m * cout * (2 if res else 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(2.0 * m * cout * k / BF16_TENSOR_OPS_PER_S,
+                (2.0 + res) * m * cout / FP32_OPS_PER_S)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+
+
+def conv_bias_phase(seed: int) -> dict:
+    """The convolution kernel against its plain version at CONV_BIAS_SHAPES,
+    beside bf16 cuDNN F.conv2d with the bias."""
+    import torch
+    import torch.nn.functional as F
+
+    from simhand_tpu_torch.ops import conv_bias as CB
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    report = {}
+    for label, n, h, w, cin, cout, k, stride, padding, relu, with_res in CONV_BIAS_SHAPES:
+        x = torch.randn(n, h, w, cin, device="cuda", generator=gen).bfloat16()
+        wt = (torch.randn(cout, k * k * cin, device="cuda", generator=gen)
+              / math.sqrt(k * k * cin)).bfloat16()
+        b = 0.1 * torch.randn(cout, device="cuda", generator=gen)
+        pads = CB.conv_pads(h, w, (k, k), stride, padding)
+        oh, ow = CB.out_size(h, w, (k, k), stride, pads)
+        res = (torch.randn(n, oh, ow, cout, device="cuda", generator=gen).bfloat16()
+               if with_res else None)
+        kw = dict(kernel=(k, k), stride=stride, padding=padding, relu=relu, res=res)
+        # the yardstick: one cuDNN call, the NCHW views of the same memory
+        xn = x.permute(0, 3, 1, 2)
+        w4 = wt.view(cout, k, k, cin).permute(0, 3, 1, 2)
+        b16 = b.bfloat16()
+        lib_pad = (max(pads[0]), max(pads[1]))
+
+        def kernel():
+            return CB.conv_bias_act(x, wt, b, **kw)
+
+        def plain():
+            return CB.conv_bias_act_plain(x, wt, b, **kw)
+
+        def library():
+            return F.conv2d(xn, w4, b16, stride=stride, padding=lib_pad)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        a, c = got.float(), want.float()
+        _, e = torch.frexp(torch.maximum(a.abs(), c.abs()))
+        ulp = torch.ldexp(torch.ones_like(a), e - 8)
+        diff = (a - c).abs()
+        floor = (2.0**-16 * (CB.patches(x.float().abs(), (k, k), stride, pads)
+                             @ wt.float().abs().T)).view(a.shape)
+        row = {"max_abs_err": float(diff.max()),
+               "share_differ": float((diff > 0).float().mean()),
+               "share_over_one_ulp": float((diff > ulp).float().mean())}
+        require(bool((diff <= ulp + floor).all()),
+                f"conv_bias_act {label}: y beyond one bf16 ulp of the plain version's {row}")
+        again = kernel()
+        torch.cuda.synchronize()
+        require(torch.equal(again, got), f"conv_bias_act {label}: a second launch gave other bits")
+        del got, want, a, c, e, ulp, diff, floor, again
+        big = n * oh * ow * cout >= 2**24
+        row["ms"] = cuda_ms(kernel, 20 if big else 50)
+        by_kernel = device_ms_by_kernel(kernel, 10)
+        row["device_ms"] = sum(by_kernel.values())
+        row["kernel_device_ms"] = sum(v for key, v in by_kernel.items()
+                                      if "conv_bias_kernel" in key)
+        row["plain_ms"] = cuda_ms(plain, 3)
+        row["library_ms"] = cuda_ms(library, 20 if big else 50)
+        row["library_device_ms"] = device_ms(library, 10)
+        row["ratio_to_library"] = row["device_ms"] / row["library_device_ms"]
+        x_read = (n * cin * read_pixels(h, oh, k, stride, pads[0][0])
+                  * read_pixels(w, ow, k, stride, pads[1][0]))
+        row["bound_ms"], row["bound_by"] = conv_bias_bound(x_read, n * oh * ow, cout,
+                                                           k * k * cin, with_res)
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        report[label] = row
+        print(f"conv_bias_act {label} ({n}x{h}x{w}x{cin} -> {cout}, {k}x{k}/{stride}, res "
+              f"{with_res}): " + " ".join(f"{key}={v:.4g}" if isinstance(v, float) else
+                                          f"{key}={v}" for key, v in row.items()))
+        del x, wt, b, res, xn, w4, b16
+        torch.cuda.empty_cache()
+    return {"conv_bias_act": report}
+
+
 def block_bound(m: int, cin: int, cm: int) -> tuple[float, str]:
     """Least time of kernel #12: bytes (x read once, y written once, the bf16
     weights and float32 biases read once) over the memory rate, or the three
@@ -1131,18 +1380,66 @@ def block_args(gen, imgs: int, hw, cin: int, cm: int):
     return x, w1, 0.1 * randn(cm), w2, 0.1 * randn(cm), w3, 0.1 * randn(cin)
 
 
-def cudnn_block(imgs: int, hw, args):
-    """The same block through the folded walk's own route for a block the
-    kernel does not own (FoldedBf16Ops: three bf16 cuDNN convolutions, the
-    float32 biases, ReLUs and the shortcut's add): a zero-argument callable
-    returning the (M, C) plane."""
-    from simhand_tpu_torch.ops.bottleneck_block import FoldedBf16Ops
+def cudnn_ops(fw: dict):
+    """The folded walk's ops through cuDNN, the yardstick the port does not
+    use: bf16 cuDNN convolutions (their float32 sums rounded to bf16), the
+    float32 bias added in one pass and rounded again, ReLU on the bf16
+    result, the shortcut's add in bf16."""
+    import torch
 
+    from simhand_tpu_torch.serving.int8_infer import _conv, _maxpool
+
+    weights = {key: (w.to(torch.bfloat16), b.float()) for key, (w, b) in fw.items()}
+
+    class CudnnBf16Ops:
+        def input(self, key, x):
+            return x.to(torch.bfloat16)
+
+        def conv_bn(self, key, x, stride, padding):
+            w, b = weights[key]
+            y = _conv(x, w, stride, padding)
+            return torch.add(y, b.view(1, -1, 1, 1), out=torch.empty_like(y))
+
+        def conv_bn_relu(self, key, x, stride, padding):
+            return torch.relu_(self.conv_bn(key, x, stride, padding))
+
+        def add_relu(self, key, y, shortcut):
+            return torch.relu_(y + shortcut)
+
+        def maxpool(self, x):
+            return _maxpool(x)
+
+        def to_f32(self, x):
+            return x.float()
+
+    return CudnnBf16Ops()
+
+
+def cudnn_walk(model):
+    """The frozen bf16 folded forward through ``cudnn_ops``: images (N, H, W,
+    3) -> (N, C) float32."""
+    import torch
+
+    from simhand_tpu_torch.serving import int8_infer
+
+    ops = cudnn_ops(int8_infer._fold_resnet(model.encoder, model.resnet_size))
+
+    def forward(images):
+        with torch.no_grad():
+            return int8_infer._walk_resnet(ops, model.resnet_size, images, pool=True)
+
+    return forward
+
+
+def cudnn_block(imgs: int, hw, args):
+    """The same block through ``cudnn_ops`` (three bf16 cuDNN convolutions,
+    the float32 biases, ReLUs and the shortcut's add): a zero-argument
+    callable returning the (M, C) plane."""
     x, w1, b1, w2, b2, w3, b3 = args
     (h, w), cm, c = hw, w1.shape[0], x.shape[1]
-    ops = FoldedBf16Ops({"b/conv1": (w1.view(cm, c, 1, 1), b1),
-                         "b/conv2": (w2.view(cm, 3, 3, cm).permute(0, 3, 1, 2).contiguous(), b2),
-                         "b/conv3": (w3.view(c, cm, 1, 1), b3)})
+    ops = cudnn_ops({"b/conv1": (w1.view(cm, c, 1, 1), b1),
+                     "b/conv2": (w2.view(cm, 3, 3, cm).permute(0, 3, 1, 2).contiguous(), b2),
+                     "b/conv3": (w3.view(c, cm, 1, 1), b3)})
     xi = x.view(imgs, h, w, c).permute(0, 3, 1, 2)
 
     def run():
@@ -1164,8 +1461,8 @@ def ulp_share(got, want) -> float:
 
 
 def block_kernel_phase(seed: int) -> dict:
-    """Kernel #12 against its plain version at BLOCK_SHAPES, beside the
-    walk's cuDNN route; BLOCK_REFUSED must raise."""
+    """Kernel #12 (three launches of the convolution kernel) against its
+    plain version at BLOCK_SHAPES, beside the block through cuDNN."""
     import torch
 
     from simhand_tpu_torch.ops import bottleneck_block as BB
@@ -1201,18 +1498,13 @@ def block_kernel_phase(seed: int) -> dict:
         # its ~8 launches make the event time depend on the host's enqueue
         row["cudnn_block_device_ms"] = device_ms(cudnn, 10)
         row["bound_ms"], row["bound_by"] = block_bound(m, cin, cm)
+        row["ratio_to_cudnn"] = row["device_ms"] / row["cudnn_block_device_ms"]
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
         report[label] = row
         print(f"block kernel bottleneck_block {label} ({imgs} x {hw}, C {cin}, Cm {cm}): " + " ".join(
             f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()))
         del args, cudnn
         torch.cuda.empty_cache()
-    label, imgs, hw, cin, cm = BLOCK_REFUSED
-    try:
-        BB.bottleneck_block(*block_args(gen, imgs, hw, cin, cm), hw=hw)
-    except ValueError as exc:
-        print(f"block kernel refuses {label} ({hw}, Cm {cm}): {exc}")
-    else:
-        raise SmokeFailure(f"#12 took {label}, whose h1 and h2 outgrow shared memory")
     return {"bottleneck_block": report}
 
 
@@ -1259,24 +1551,30 @@ def timed_calls(fn, x, n: int) -> float:
 
 
 def serving_path(seed: int) -> tuple[dict, dict, object]:
-    """The frozen bf16 serving forward with layer4_1/2 through kernel #12,
-    against the cuDNN walk, the float32 walk and the model's eval forward."""
+    """The frozen bf16 serving forward, every convolution on the kernel and
+    layer4_1/2 through #12, against the cuDNN walk, the float32 walk and the
+    model's eval forward."""
     import torch
 
     from simhand_tpu_torch.ops import bottleneck_block as BB
+    from simhand_tpu_torch.ops import conv_bias as CB
     from simhand_tpu_torch.serving import fold_encoder_f32
 
     model = serving_model(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     images = torch.randn(SERVE_IMAGES, SIDE, SIDE, 3, device="cuda", generator=gen)
     walks = {"kernel": BB.make_folded_encoder_bf16(model, SERVE_BLOCKS),
-             "cudnn": BB.make_folded_encoder_bf16(model),
+             "cudnn": cudnn_walk(model),
              "eval": lambda x: model(x)[0]}
     BB.reset_launches()
+    CB.reset_launches()
     emb = walks["kernel"](images)
     torch.cuda.synchronize()
-    per_forward = BB.bottleneck_block.launches
-    require(per_forward == len(SERVE_BLOCKS), f"#12 launched {per_forward} times in one forward")
+    per_forward = {"bottleneck_block": BB.bottleneck_block.launches,
+                   "conv_bias_act": CB.conv_bias_act.launches}
+    require(per_forward == {"bottleneck_block": len(SERVE_BLOCKS),
+                            "conv_bias_act": CONV_BIAS_PER_FORWARD},
+            f"launches in one forward {per_forward}")
     with torch.no_grad():
         cudnn, ev = walks["cudnn"](images), walks["eval"](images)
         f32 = fold_encoder_f32(model)(images)["embedding"]
@@ -1285,15 +1583,20 @@ def serving_path(seed: int) -> tuple[dict, dict, object]:
     scale = float(cudnn.abs().max())
     perf = {"launches_per_forward": per_forward, "embedding_max_abs": scale,
             "kernel_vs_cudnn_rel": float((emb - cudnn).abs().max()) / scale,
+            "kernel_vs_f32_rel": float((emb - f32).abs().max()) / float(f32.abs().max()),
+            "cudnn_vs_f32_rel": float((cudnn - f32).abs().max()) / float(f32.abs().max()),
             "min_cos_cudnn": float(cosines(emb, cudnn).min()),
             "min_cos_f32": float(cosines(emb, f32).min()),
             "min_cos_eval": float(cosines(emb, ev).min()),
             "cudnn_min_cos_f32": float(cosines(cudnn, f32).min())}
-    print("serving forward: " + " ".join(f"{k}={v:.6g}" for k, v in perf.items()))
+    print("serving forward: " + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                                         for k, v in perf.items()))
     require(perf["kernel_vs_cudnn_rel"] <= SERVE_WALK_RTOL,
             f"kernel walk differs from the cuDNN walk by {perf['kernel_vs_cudnn_rel']:.3e}")
-    require(perf["min_cos_f32"] > 0.99 and perf["min_cos_eval"] > 0.99,
-            "kernel walk's embeddings do not track the float32 walk and the eval forward")
+    require(perf["min_cos_cudnn"] > 0.99 and perf["min_cos_f32"] > 0.99
+            and perf["min_cos_eval"] > 0.99,
+            "kernel walk's embeddings do not track the cuDNN and float32 walks and the eval "
+            "forward")
     del cudnn, ev, f32
 
     times = {k: [] for k in walks}
@@ -1304,7 +1607,8 @@ def serving_path(seed: int) -> tuple[dict, dict, object]:
     perf.update({"forward_ms": mean_ms, "img_per_s": {k: SERVE_IMAGES / v * 1e3
                                                       for k, v in mean_ms.items()},
                  "forward_ms_blocks": times,
-                 "launches_in_timing": BB.bottleneck_block.launches})
+                 "launches_in_timing": {"bottleneck_block": BB.bottleneck_block.launches,
+                                        "conv_bias_act": CB.conv_bias_act.launches}})
     print("serving forward timing (ms per forward of 256 images, in turns): " + ", ".join(
         f"{k} {v:.3f} = {SERVE_IMAGES / v * 1e3:.1f} img/s" for k, v in mean_ms.items())
         + f"; blocks {times}")
@@ -1312,7 +1616,12 @@ def serving_path(seed: int) -> tuple[dict, dict, object]:
     perf.update(profile_steps(lambda st, x: (st, walks["kernel"](x)), None, images))
     print("serving profile: one step = one forward of the cuDNN walk")
     perf["cudnn_walk"] = profile_steps(lambda st, x: (st, walks["cudnn"](x)), None, images)
-    return {"bottleneck_block": per_forward}, perf, walks["kernel"]
+    # the walk's float32 bias adds are gone; the yardstick shows the check sees them
+    require(perf["profile_float_add_launches"] == 0,
+            f"the kernel walk ran {perf['profile_float_add_launches']} float32 adds a forward")
+    require(perf["cudnn_walk"]["profile_float_add_launches"] > 0,
+            "the profile shows no float32 add in the cuDNN walk: the check cannot see them")
+    return per_forward, perf, walks["kernel"]
 
 
 def server_phase(forward) -> dict:
@@ -1461,13 +1770,18 @@ def main() -> int:
     bn_report = bn_kernel_phase(args.seed)
     fused_bn_report = fused_bn_kernel_phase(args.seed)
     conv_report = conv_kernel_phase(args.seed)
+    conv_report.update(conv_f32_phase(args.seed))
+    conv_bias_report = conv_bias_phase(args.seed)
     block_report = block_kernel_phase(args.seed)
     state, batch, main_launches, perf = main_path(args.seed)
     bn_launches, bn_perf = epilogue_path(args.seed, state, batch, perf["step0_loss"])
     fused_bn_launches, fused_bn_perf = fused_bn_path(args.seed, state, batch, perf["step0_loss"])
     conv_launches, conv_perf = conv1x1_path(args.seed, state, batch)
     plain_launches = plain_family(state, batch)
-    del state, batch
+    del state
+    f32_launches, f32_perf = conv1x1_f32_path(args.seed, batch)
+    conv_launches.update(f32_launches)
+    del batch
     serve_launches, serve_perf, kernel_walk = serving_path(args.seed)
     server_perf = server_phase(kernel_walk)
 
@@ -1502,15 +1816,24 @@ def main() -> int:
         main_row = shapes[CONV_MAIN_SHAPE]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES["conv1x1"],
-            "replaces": CONV_REPLACES[name], "launches": conv_launches[name],
-            **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "kernel_device_ms",
-                                        "sum_device_ms", "plain_ms", "bound_ms", "bound_by",
-                                        "matmul_ms", "ratio_to_matmul")},
+            "replaces": CONV_REPLACES[name.removesuffix("_f32")], "launches": conv_launches[name],
+            **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "sum_device_ms",
+                                        "plain_ms", "bound_ms", "bound_by", "matmul_ms",
+                                        "ratio_to_matmul")},
             "library_ms": None, "at": shapes,
         })
+    main_row = conv_bias_report["conv_bias_act"][CONV_BIAS_MAIN_SHAPE]
+    kernels.append({
+        "name": "conv_bias_act", "route": "cuda", "source": SOURCES["conv_bias"],
+        "replaces": CONV_BIAS_REPLACES["conv_bias_act"],
+        "launches": serve_launches["conv_bias_act"],
+        **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "library_device_ms")},
+        "at": conv_bias_report["conv_bias_act"],
+    })
     main_row = block_report["bottleneck_block"][BLOCK_MAIN_SHAPE]
     kernels.append({
-        "name": "bottleneck_block", "route": "cuda", "source": SOURCES["bottleneck_block"],
+        "name": "bottleneck_block", "route": "cuda", "source": SOURCES["conv_bias"],
         "replaces": BLOCK_REPLACES["bottleneck_block"],
         "launches": serve_launches["bottleneck_block"],
         **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
@@ -1524,8 +1847,8 @@ def main() -> int:
               f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.4f}")
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"step": perf, "epilogue_step": bn_perf, "fused_bn_step": fused_bn_perf,
-                      "conv1x1_step": conv_perf, "serving": serve_perf, "server": server_perf,
-                      "card": card}))
+                      "conv1x1_step": conv_perf, "conv1x1_f32_step": f32_perf,
+                      "serving": serve_perf, "server": server_perf, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,10 @@ Every entry point runs on ``cuda`` unless the caller passes
 The four NT-Xent kernels (``csrc/ntxent.cu``), the four fused BN+ReLU
 backward kernels and the BatchNorm backward's dual reduce
 (``csrc/bn_epilogue.cu``), the two 1x1-conv GEMMs with a statistics
-epilogue (``csrc/conv1x1.cu``) and the whole frozen bottleneck block of the
-serving forward (``csrc/bottleneck_block.cu``) are hand-written CUDA C++,
-built with ``nvcc`` at first use into ``build/``.
+epilogue (``csrc/conv1x1.cu``) and the convolution with a bias / residual /
+ReLU epilogue that runs the bf16 serving walk and its whole frozen
+bottleneck blocks (``csrc/conv_bias.cu``) are hand-written CUDA C++, built
+with ``nvcc`` at first use into ``build/``.
 """
 from simhand_tpu_torch.device import resolve_device
 

@@ -1,5 +1,6 @@
-// 1x1 convolution as a bf16 matrix product with a BatchNorm-statistics
-// epilogue, for Hopper (sm_90a).
+// 1x1 convolution as a matrix product with a BatchNorm-statistics epilogue,
+// for Hopper (sm_90a): bf16 on the tensor cores (TMA + wgmma), and float32
+// on the CUDA cores (the section "float32" below).
 //
 // Replaces the two Pallas TPU kernels of simhand_tpu/ops/conv1x1.py, both
 // reached through _stats_call and _stats_epilogue:
@@ -77,11 +78,9 @@
 //   700 W, against 2.2 us). No atomics: the same inputs give the same bits
 //   on one card.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <algorithm>
-#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -102,182 +101,6 @@ struct Config {
   static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + Y_BYTES + RED_BYTES + 2 * STAGES * 8;
 };
 static_assert(Config<256>::SMEM <= 232448 && Config<128>::SMEM <= 232448, "shared memory");
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// ---- mbarriers, TMA, named barriers ---------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// box (c0 + [0, box0), c1 + [0, box1)) of a 2-D tensor map into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-// the same box into the same offsets of both CTAs of the cluster, each of
-// whose barrier at bar's offset counts the bytes
-__device__ __forceinline__ void tma_load_both(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                              int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"((uint16_t)3)
-      : "memory");
-}
-// arrive on the barrier at the same offset in CTA `rank` of the cluster
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
-  asm volatile(
-      "{\n .reg .b32 remote;\n mapa.shared::cluster.u32 remote, %0, %1;\n"
-      " mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
-      "r"(rank)
-      : "memory");
-}
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
-                   : "memory");
-}
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map)),
-               "r"(src), "r"(c0), "r"(c1)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// ---- wgmma -----------------------------------------------------------------
-
-// K-major operand of 8-row groups 1,024 bytes apart (rows of 128 bytes),
-// 128-byte swizzle; a K step of 16 adds 32 bytes (2 units) to the address
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator reads or writes across wgmma
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define D8(o) "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), \
-              "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
-#define D64 D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
-#define D128 D64, D8(64), D8(72), D8(80), D8(88), D8(96), D8(104), D8(112), D8(120)
-#define REGS64                                                                  \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "     \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
-  "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
-  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
-  "%61, %62, %63}"
-#define REGS128                                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "            \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "        \
-  "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "        \
-  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "        \
-  "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, "        \
-  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, "        \
-  "%91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "  \
-  "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "     \
-  "%119, %120, %121, %122, %123, %124, %125, %126, %127}"
-
-// d (+)= a b for a 64 x 16 slice of x and a BN x 16 slice of w; ss: both from
-// shared memory, rs: a in registers (the m16n8k16 A fragment of each warp);
-// scale_d = 0 starts the sum
-template <int BN>
-struct Mma;
-template <>
-struct Mma<128> {
-  __device__ static __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
-        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : D64
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-  __device__ static __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
-                                            int scale_d) {
-    asm volatile(
-        "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
-        ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-        : D64
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  }
-};
-template <>
-struct Mma<256> {
-  __device__ static __forceinline__ void ss(float (&d)[128], uint64_t a, uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
-        " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " REGS128
-        ", %128, %129, p, 1, 1, 0, 0;\n}\n"
-        : D128
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-  __device__ static __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b,
-                                            int scale_d) {
-    asm volatile(
-        "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
-        " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " REGS128
-        ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-        : D128
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  }
-};
 
 // relu(x * a + b) of one bf16 value, rounded to bf16
 __device__ __forceinline__ uint32_t affine1(uint32_t bits, float a, float b) {
@@ -528,32 +351,136 @@ conv1x1_sum_partials_kernel(const float* __restrict__ partial, int groups, int c
   }
 }
 
-// ---- host ------------------------------------------------------------------
+// ---- float32 ---------------------------------------------------------------
+//
+// The float32 instantiations (y and the sums in float32, as the reference
+// keeps y in x's dtype): the products on the CUDA cores in float32, not
+// TF32, which the port keeps off. Bound by operations at 67 TFLOP/s, so a
+// plain tiled GEMM: a CTA of 256 threads computes a 128 x 128 tile, each
+// thread 8 x 8 outputs (rows 4 ty + i and 64 + 4 ty + i, columns 4 tx + j
+// and 64 + 4 tx + j), over K in slices of 8 through two shared-memory
+// buffers, the next slice held in registers while the current one is
+// multiplied. Every output adds its k in order with one fmaf each, and the
+// affine is __fmul_rn then __fadd_rn then fmaxf, as the bf16 kernel does it.
+// The epilogue stores y and adds the tile's rows of y and y^2 per column in
+// a fixed order (a thread's 8 rows, then the 16 row groups of the tile) into
+// row `row tile` of the partial sums, which conv1x1_sum_partials_kernel adds
+// up: the same inputs give the same bits.
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+constexpr int F_TILE = 128, F_BK = 8, F_THREADS = 256;
 
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
+template <bool AFFINE>
+__global__ void __launch_bounds__(F_THREADS)
+conv1x1_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                         const float* __restrict__ A, const float* __restrict__ B, int M, int N,
+                         int K, float* __restrict__ y, float* __restrict__ partial) {
+  // the x and w slices of both buffers, k-major; then the column sums' parts
+  __shared__ __align__(16) float smem[2 * 2 * F_BK * F_TILE];
+  float* xs = smem;                       // [buffer][k][row]
+  float* ws = smem + 2 * F_BK * F_TILE;   // [buffer][k][column]
+  const int tid = (int)threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = (int)blockIdx.x * F_TILE, n0 = (int)blockIdx.y * F_TILE;
+  // thread t loads k .. k + 3 of row t / 2 of both tiles (K is a multiple of 8)
+  const int lr = tid >> 1, lk = (tid & 1) * 4;
+  const bool x_ok = m0 + lr < M, w_ok = n0 + lr < N;
+  const float* xp = x + (size_t)(x_ok ? m0 + lr : 0) * K + lk;
+  const float* wp = w + (size_t)(w_ok ? n0 + lr : 0) * K + lk;
+  float xv[4], wv[4];
+  auto fetch = [&](int k0) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 a = x_ok ? *reinterpret_cast<const float4*>(xp + k0) : zero;
+    const float4 b = w_ok ? *reinterpret_cast<const float4*>(wp + k0) : zero;
+    xv[0] = a.x, xv[1] = a.y, xv[2] = a.z, xv[3] = a.w;
+    wv[0] = b.x, wv[1] = b.y, wv[2] = b.z, wv[3] = b.w;
+    if constexpr (AFFINE) {   // rows past M hold relu(B): never stored or summed
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = k0 + lk + i;
+        xv[i] = fmaxf(__fadd_rn(__fmul_rn(xv[i], __ldg(A + k)), __ldg(B + k)), 0.f);
+      }
+    }
+  };
+  auto stash = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      xs[(buf * F_BK + lk + i) * F_TILE + lr] = xv[i];
+      ws[(buf * F_BK + lk + i) * F_TILE + lr] = wv[i];
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  const int k_steps = K / F_BK;
+  for (int ks = 0; ks < k_steps; ++ks) {
+    const int cur = ks & 1;
+    if (ks + 1 < k_steps) fetch((ks + 1) * F_BK);
+#pragma unroll
+    for (int k = 0; k < F_BK; ++k) {
+      const float* xr = xs + (cur * F_BK + k) * F_TILE;
+      const float* wr = ws + (cur * F_BK + k) * F_TILE;
+      const float4 a0 = *reinterpret_cast<const float4*>(xr + 4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(xr + 64 + 4 * ty);
+      const float4 b0 = *reinterpret_cast<const float4*>(wr + 4 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(wr + 64 + 4 * tx);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    // the other buffer was last read before the previous barrier
+    if (ks + 1 < k_steps) stash(cur ^ 1);
+    __syncthreads();
+  }
+
+  // y, and this thread's rows of y and y^2 per column, rows in order
+  float s1[8], s2[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s1[j] = 0.f, s2[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    if (m >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 64 * h + 4 * tx;   // N is a multiple of 8: all four or none
+      if (n < N)
+        *reinterpret_cast<float4*>(y + (size_t)m * N + n) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s1[j] = __fadd_rn(s1[j], acc[i][j]);
+      s2[j] = __fadd_rn(s2[j], __fmul_rn(acc[i][j], acc[i][j]));
+    }
+  }
+  // the 16 row groups' parts of each column, added in order (the last
+  // barrier of the K loop freed the buffers)
+  float* red = smem;   // [ty][s1 of the 128 columns, s2 of the 128 columns]
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
+    red[ty * 2 * F_TILE + c] = s1[j];
+    red[ty * 2 * F_TILE + F_TILE + c] = s2[j];
+  }
+  __syncthreads();
+  const int c = tid % F_TILE, n = n0 + c;
+  if (n < N) {
+    float t = red[tid];
+#pragma unroll
+    for (int g = 1; g < 16; ++g) t = __fadd_rn(t, red[g * 2 * F_TILE + tid]);
+    partial[(size_t)blockIdx.x * 2 * N + (tid < F_TILE ? n : N + n)] = t;
+  }
 }
+
+// ---- host ------------------------------------------------------------------
 
 // a row-major (rows, cols) bf16 matrix read or written in boxes of
 // box_rows x box_cols (box_cols * 2 = 128 bytes, the swizzle's width)
@@ -570,40 +497,18 @@ bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_row
 
 int tile_cols(int N) { return N <= 128 ? 128 : 256; }
 
-// a launch of the kernel in clusters of two CTAs
+// how many clusters of the kernel the current device holds at once; 0 if
+// it cannot be read
 template <int BN>
-cudaLaunchConfig_t cluster_config(int ctas, cudaStream_t s, cudaLaunchAttribute* attr) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = 2, attr->val.clusterDim.y = 1, attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas), cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = Config<BN>::SMEM, cfg.stream = s;
-  cfg.attrs = attr, cfg.numAttrs = 1;
-  return cfg;
-}
-
-// how many clusters of the kernel the current device holds at once (the
-// SMs of a GPC pair up); 0 if it cannot be read
-template <int BN>
-int max_clusters() {
+int clusters_of() {
   static int known[64] = {};
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 0;
-  if (known[dev] > 0) return known[dev];
-  const auto kernel = conv1x1_stats_kernel<BN, false>;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config<BN>(2, nullptr, &attr);
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           Config<BN>::SMEM) != cudaSuccess ||
-      cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess || n <= 0)
-    return 0;
-  return known[dev] = n;
+  return max_clusters(conv1x1_stats_kernel<BN, false>, THREADS, Config<BN>::SMEM, known);
 }
 
 // CTAs per column tile (rows of the partial sums, an even number) on the
 // current device; 0 if it cannot be read
 int row_groups(int M, int N) {
-  const int clusters = tile_cols(N) == 128 ? max_clusters<128>() : max_clusters<256>();
+  const int clusters = tile_cols(N) == 128 ? clusters_of<128>() : clusters_of<256>();
   if (clusters == 0) return 0;
   const int n_tiles = (N + tile_cols(N) - 1) / tile_cols(N), m_tiles = (M + BM - 1) / BM;
   return 2 * std::max(1, std::min((m_tiles + 1) / 2, clusters / n_tiles));
@@ -624,7 +529,8 @@ int launch(const void* x, const void* w, const void* A, const void* B, int M, in
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Config<BN>::SMEM);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config<BN>((N + BN - 1) / BN * rows, s, &attr);
+  const cudaLaunchConfig_t cfg =
+      cluster_config((N + BN - 1) / BN * rows, THREADS, Config<BN>::SMEM, s, &attr);
   err = cudaLaunchKernelEx(&cfg, kernel, x_map, w_map, y_map, static_cast<const float*>(A),
                            static_cast<const float*>(B), M, N, K, static_cast<float*>(partial));
   if (err != cudaSuccess) return (int)err;
@@ -641,6 +547,23 @@ int launch_any(const void* x, const void* w, const void* A, const void* B, int M
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return tile_cols(N) == 128 ? launch<128, AFFINE>(x, w, A, B, M, N, K, y, partial, out, s)
                              : launch<256, AFFINE>(x, w, A, B, M, N, K, y, partial, out, s);
+}
+
+template <bool AFFINE>
+int launch_f32(const void* x, const void* w, const void* A, const void* B, int M, int N, int K,
+               void* y, void* partial, void* out, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8 || (AFFINE && (A == nullptr || B == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int m_tiles = (M + F_TILE - 1) / F_TILE;
+  conv1x1_stats_f32_kernel<AFFINE><<<dim3(m_tiles, (N + F_TILE - 1) / F_TILE), F_THREADS, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(A),
+      static_cast<const float*>(B), M, N, K, static_cast<float*>(y), static_cast<float*>(partial));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  conv1x1_sum_partials_kernel<<<(2 * N + 31) / 32, 32 * SUM_WARPS, 0, s>>>(
+      static_cast<const float*>(partial), m_tiles, 2 * N, static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -673,6 +596,23 @@ int conv1x1_stats(const void* x, const void* w, int M, int N, int K, void* y, vo
 int conv1x1_bn_relu_stats(const void* x, const void* w, const void* A, const void* B, int M,
                           int N, int K, void* y, void* partial, void* out, void* stream) {
   return launch_any<true>(x, w, A, B, M, N, K, y, partial, out, stream);
+}
+
+// The float32 instantiations of the two (x, w and y float32; the same
+// partial sums, conv1x1_partial_floats_f32(M, N) floats of them).
+int conv1x1_partial_floats_f32(int M, int N) {
+  if (M <= 0 || N <= 0) return -1;
+  return (M + F_TILE - 1) / F_TILE * 2 * N;
+}
+
+int conv1x1_stats_f32(const void* x, const void* w, int M, int N, int K, void* y, void* partial,
+                      void* out, void* stream) {
+  return launch_f32<false>(x, w, nullptr, nullptr, M, N, K, y, partial, out, stream);
+}
+
+int conv1x1_bn_relu_stats_f32(const void* x, const void* w, const void* A, const void* B, int M,
+                              int N, int K, void* y, void* partial, void* out, void* stream) {
+  return launch_f32<true>(x, w, A, B, M, N, K, y, partial, out, stream);
 }
 
 const char* conv1x1_error_string(int err) {

@@ -2,11 +2,11 @@
 them with ``ctypes``.
 
 Each source compiles on its own into ``build/lib<name>-<digest>.so`` at the
-root of the checkout (the digest is of the source, so an edited source
-builds anew). The library has a plain C interface: pointers go as
-``c_void_p``, the stream is PyTorch's current stream, and every entry point
-returns a ``cudaError_t``. ``nvcc``'s ``-Xptxas -v`` report is kept beside
-the library as ``.log``.
+root of the checkout (the digest is of the source and of the ``csrc/*.cuh``
+headers the sources share, so an edited source or header builds anew). The
+library has a plain C interface: pointers go as ``c_void_p``, the stream is
+PyTorch's current stream, and every entry point returns a ``cudaError_t``.
+``nvcc``'s ``-Xptxas -v`` report is kept beside the library as ``.log``.
 """
 from __future__ import annotations
 
@@ -36,8 +36,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

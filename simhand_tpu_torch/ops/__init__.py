@@ -7,6 +7,7 @@ from simhand_tpu_torch.ops.bottleneck_block import (
     make_folded_encoder_bf16,
 )
 from simhand_tpu_torch.ops.conv1x1 import conv1x1_bn_relu_stats, conv1x1_stats
+from simhand_tpu_torch.ops.conv_bias import conv_bias_act
 
-__all__ = ["FoldedBf16Ops", "conv1x1_bn_relu_stats", "conv1x1_stats", "fold_block_weights",
-           "make_folded_encoder_bf16"]
+__all__ = ["FoldedBf16Ops", "conv1x1_bn_relu_stats", "conv1x1_stats", "conv_bias_act",
+           "fold_block_weights", "make_folded_encoder_bf16"]

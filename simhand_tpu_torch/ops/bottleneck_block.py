@@ -1,6 +1,7 @@
-"""One whole frozen bottleneck block in one kernel (counterpart of
+"""One whole frozen bottleneck block, kernel #12 (counterpart of
 ``simhand_tpu/ops/bottleneck_block.py``), and the bf16 folded-BN serving
-walk that hands it the identity blocks it is told.
+walk that runs every convolution on ``ops/conv_bias.py``'s kernel and hands
+#12 the identity blocks it is told.
 
   bottleneck_block(x2d, w1, b1, w2, b2, w3, b3, hw=(H, W))
       h1 = bf16(relu(x2d @ w1.T + b1))
@@ -18,12 +19,13 @@ are their transposes. Tap (dy, dx) of row r reads row r + dy*W + dx where
 'SAME' padding; rows of another image are never read.
 
 On CPU tensors the wrapper calls its plain version; on CUDA tensors it
-launches kernel #12 from ``csrc/bottleneck_block.cu`` on the current stream
-or raises, and adds one to ``bottleneck_block.launches`` at each launch and
-nowhere else. The kernel takes bf16, C and Cm multiples of 64, and a block
-of whole images whose h1 and h2 fit in shared memory with its tiles (227
-KB): ResNet-50's layer4 and layer3 at 128x128 and 224x224 fit, layer1 at
-128x128 (1,024 rows an image) does not and raises ``ValueError``.
+runs the block as three launches of ``ops/conv_bias.conv_bias_act`` (the
+kernel of ``csrc/conv_bias.cu``): the 1x1 with ReLU, the 3x3 'SAME' with
+ReLU (w2's (Cm, 9, Cm) layout is already the kernel's tap-major K, and TMA's
+zero fill of the taps outside the image is the mask), and the 1x1 with the
+residual x and ReLU; or it raises. It adds one to
+``bottleneck_block.launches`` per block run on the card. The kernel takes
+bf16, C and Cm multiples of 8 and any number of images of any size.
 
 ``tap_mode``: the reference contracts the 3x3 as nine tap products
 ("loop") or one (M, 9*Cm) im2col product ("im2col"). Both add the same
@@ -31,45 +33,24 @@ KB): ResNet-50's layer4 and layer3 at 128x128 and 224x224 fit, layer1 at
 rounding, so the kernel has one K loop for both and the wrapper takes no
 ``tap_mode``; only the plain version keeps the two orders. The
 reference's ``tile_rows`` (its VMEM row tile) has no counterpart either:
-the kernel's block holds whole images and picks its own size.
+the kernel tiles whole images or image rows of its own size.
 
 ``FoldedBf16Ops`` is the bf16 interpretation of ``serving.int8_infer``'s
-walk. Its convolutions are bf16 ``F.conv2d`` (cuDNN on the card), which
-round their float32 sums to bf16 before the float32 bias is added and the
-result rounded again: one rounding more than the reference's
-``preferred_element_type=float32`` convolution, and the fast route a
-serving forward takes on this card. The tests state the tolerance this
-costs against the JAX walk. Blocks handed to the kernel round their conv3
-output once (in float32 up to the shortcut's add), where the walk rounds
-it before ``add_relu``.
+walk. Every convolution is ``conv_bias_act``: the float32 sum takes the
+float32 bias (and ReLU) and is rounded once, as the reference's
+``preferred_element_type=float32`` convolution does. ``add_relu`` adds the
+rounded conv3 output and the shortcut in bf16 (float32 arithmetic, one
+rounding), as the reference's walk does; blocks handed to #12 keep conv3's
+sum in float32 up to the shortcut's add and round once.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from simhand_tpu_torch import native
 from simhand_tpu_torch.device import on_cpu
+from simhand_tpu_torch.ops.conv_bias import conv_bias_act
 
 TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
-_P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its C signatures."""
-    lib = native.load("bottleneck_block")
-    lib.bottleneck_block.argtypes = [_P] * 7 + [_I] * 6 + [_P, _P]
-    lib.bottleneck_block.restype = ctypes.c_int
-    lib.bottleneck_block_smem_bytes.argtypes = [_I, _I]
-    lib.bottleneck_block_smem_bytes.restype = ctypes.c_size_t
-    lib.bottleneck_block_smem_limit.argtypes = []
-    lib.bottleneck_block_smem_limit.restype = ctypes.c_size_t
-    lib.bottleneck_block_error_string.argtypes = [ctypes.c_int]
-    lib.bottleneck_block_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 # --------------------------------------------------------------------------
@@ -112,13 +93,7 @@ def bottleneck_block_plain(x2d, w1, b1, w2, b2, w3, b3, *, hw, tap_mode: str = "
 # wrapper
 # --------------------------------------------------------------------------
 
-def _block_rows(m: int, img: int) -> int:
-    """A kernel block's rows: whole images, at least 32 rows where there are
-    that many (the tensor cores' tile), no more than M."""
-    return img * min(max(1, 32 // img), m // img)
-
-
-def _launch(x2d, w1, b1, w2, b2, w3, b3, h: int, w: int):
+def _check(x2d, w1, b1, w2, b2, w3, b3):
     m, c = x2d.shape
     cm = w1.shape[0]
     shapes = {"x2d": (x2d, (m, c)), "w1": (w1, (cm, c)), "w2": (w2, (cm, 9, cm)),
@@ -132,31 +107,25 @@ def _launch(x2d, w1, b1, w2, b2, w3, b3, h: int, w: int):
     for name, t, n in (("b1", b1, cm), ("b2", b2, cm), ("b3", b3, c)):
         if t.dtype != torch.float32 or tuple(t.shape) != (n,) or not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous float32 ({n},) tensor")
-    if c % 64 or cm % 64:
-        raise ValueError(f"C={c} and Cm={cm} must be multiples of 64")
-    lib = _library()
-    rows = _block_rows(m, h * w)
-    smem, limit = lib.bottleneck_block_smem_bytes(rows, cm), lib.bottleneck_block_smem_limit()
-    if smem > limit:
-        raise ValueError(
-            f"a block of {rows // (h * w)} image(s) of {h}x{w} at Cm={cm} needs {smem} bytes of "
-            f"shared memory for h1, h2 and its tiles; the limit is {limit} (227 KB)")
-    y = torch.empty_like(x2d)
-    with torch.cuda.device(x2d.device):
-        stream = torch.cuda.current_stream(x2d.device).cuda_stream
-        err = lib.bottleneck_block(x2d.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                                   b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), m, c, cm, h, w,
-                                   rows, y.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"bottleneck_block: CUDA error {err}: "
-                           f"{lib.bottleneck_block_error_string(err).decode()}")
-    return y
+    if c % 8 or cm % 8:
+        raise ValueError(f"C={c} and Cm={cm} must be multiples of 8")
+
+
+def three_convs(x2d, w1, b1, w2, b2, w3, b3, *, hw):
+    """The block as three ``conv_bias_act`` calls, the kernel route's
+    layouts: on CUDA tensors three launches, on CPU tensors their plain
+    versions (so the CPU tests hold the composition)."""
+    (h, w), (m, c), cm = hw, x2d.shape, w1.shape[0]
+    x = x2d.view(m // (h * w), h, w, c)
+    h1 = conv_bias_act(x, w1, b1, kernel=(1, 1), relu=True)
+    h2 = conv_bias_act(h1, w2.view(cm, 9 * cm), b2, kernel=(3, 3), relu=True)
+    return conv_bias_act(h2, w3, b3, kernel=(1, 1), relu=True, res=x).view(m, c)
 
 
 def bottleneck_block(x2d, w1, b1, w2, b2, w3, b3, *, hw):
-    """relu(x + conv1x1(relu(conv3x3(relu(conv1x1(x) + b1)) + b2)) + b3) in
-    one kernel: identity shortcut (stride 1, C == Cout). See the module
-    docstring for the layouts."""
+    """relu(x + conv1x1(relu(conv3x3(relu(conv1x1(x) + b1)) + b2)) + b3):
+    identity shortcut (stride 1, C == Cout). See the module docstring for
+    the layouts and the route on the card."""
     h, w = hw
     m, cin = x2d.shape
     if w3.shape[0] != cin:
@@ -166,7 +135,8 @@ def bottleneck_block(x2d, w1, b1, w2, b2, w3, b3, *, hw):
         raise ValueError(f"rows {m} not a multiple of H*W={img}")
     if on_cpu(x2d, w1, b1, w2, b2, w3, b3):
         return bottleneck_block_plain(x2d, w1, b1, w2, b2, w3, b3, hw=hw)
-    y = _launch(x2d, w1, b1, w2, b2, w3, b3, h, w)
+    _check(x2d, w1, b1, w2, b2, w3, b3)
+    y = three_convs(x2d, w1, b1, w2, b2, w3, b3, hw=hw)
     bottleneck_block.launches += 1
     return y
 
@@ -197,36 +167,37 @@ def fold_block_weights(fw: dict, name: str):
 
 class FoldedBf16Ops:
     """bf16 folded-BN serving walk ops (the ``int8_infer._walk_resnet``
-    interpretation): bf16 convolutions, float32 bias, ReLU, back to bf16
-    (the module docstring says where it rounds), two bf16 passes after each
-    convolution. The blocks of ``block_ops`` (name -> ``fold_block_weights``
-    operands) go to kernel #12."""
+    interpretation): every convolution one ``conv_bias_act`` (float32 sum +
+    bias, ReLU, one rounding), ``add_relu`` in bf16. The blocks of
+    ``block_ops`` (name -> ``fold_block_weights`` operands) go to #12. The
+    activations are NCHW views with channels-last strides, which the kernel
+    takes as NHWC without a copy."""
 
     def __init__(self, fw: dict, block_ops: dict | None = None):
         # imported here, as the reference does: serving/ sits above ops/
-        from simhand_tpu_torch.serving.int8_infer import _conv, _maxpool
+        from simhand_tpu_torch.serving.int8_infer import _maxpool
 
-        self._conv, self._maxpool = _conv, _maxpool
-        self.fw = {k: (w.to(torch.bfloat16), b.float()) for k, (w, b) in fw.items()}
+        self._maxpool = _maxpool
+        # OIHW -> (O, kh * kw * I), tap-major: the kernel's K order
+        self.fw = {k: (w.permute(0, 2, 3, 1).reshape(w.shape[0], -1).to(torch.bfloat16)
+                       .contiguous(), b.float(), tuple(w.shape[2:]))
+                   for k, (w, b) in fw.items()}
         self.block_ops = block_ops or {}
 
     def input(self, key, x):
         return x.to(torch.bfloat16)
 
-    def _conv_bias(self, key, x, stride, padding):
-        """bf16(conv(x) + b): the float32 bias added in float32 and rounded
-        once, in one pass (PyTorch computes a mixed add in float32 and
-        casts on store)."""
-        w, b = self.fw[key]
-        y = self._conv(x, w, stride, padding)
-        return torch.add(y, b.view(1, -1, 1, 1), out=torch.empty_like(y))
+    def _conv(self, key, x, stride, padding, relu):
+        w, b, kernel = self.fw[key]
+        y = conv_bias_act(x.permute(0, 2, 3, 1), w, b, kernel=kernel, stride=stride,
+                          padding=padding, relu=relu)
+        return y.permute(0, 3, 1, 2)
 
     def conv_bn_relu(self, key, x, stride, padding):
-        # bf16(relu(v)) == relu(bf16(v)): rounding keeps the sign
-        return torch.relu_(self._conv_bias(key, x, stride, padding))
+        return self._conv(key, x, stride, padding, True)
 
     def conv_bn(self, key, x, stride, padding):
-        return self._conv_bias(key, x, stride, padding)
+        return self._conv(key, x, stride, padding, False)
 
     def add_relu(self, key, y, shortcut):
         # a bf16 add sums in float32 and rounds once

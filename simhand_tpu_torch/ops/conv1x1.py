@@ -14,11 +14,11 @@ as the reference's epilogue takes them.
 On CPU tensors a wrapper calls its plain version (any float dtype); on CUDA
 tensors it launches its kernel from ``csrc/conv1x1.cu`` on the current
 stream or raises, and adds one to its ``launches`` count at each launch and
-nowhere else. The kernels (a TMA + wgmma GEMM on a persistent grid of
-two-CTA clusters) take bf16 only: Cin and Cout multiples of 8 (TMA needs
-16-byte row strides), any M. Their column sums go through a float32 scratch
-of one (2, Cout) row per row group of the grid, sized by the library for the
-current device.
+nowhere else. The kernels take bf16 (a TMA + wgmma GEMM on a persistent grid
+of two-CTA clusters) or float32 (a tiled GEMM on the CUDA cores, not TF32),
+x and w of the same dtype: Cin and Cout multiples of 8 (TMA needs 16-byte
+row strides), any M. Their column sums go through a float32 scratch of one
+(2, Cout) row per row group of the grid, sized by the library.
 """
 from __future__ import annotations
 
@@ -35,6 +35,9 @@ _SIGNATURES = {
     "conv1x1_stats": [_P, _P] + [_I] * 3 + [_P] * 4,
     "conv1x1_bn_relu_stats": [_P] * 4 + [_I] * 3 + [_P] * 4,
 }
+_SIGNATURES.update({f"{name}_f32": args for name, args in _SIGNATURES.items()})
+# the kernels' dtypes and the suffix of their entry points
+_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
 
 
 @functools.cache
@@ -44,8 +47,9 @@ def _library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    lib.conv1x1_partial_floats.argtypes = [_I, _I]
-    lib.conv1x1_partial_floats.restype = ctypes.c_int
+    for name in ("conv1x1_partial_floats", "conv1x1_partial_floats_f32"):
+        getattr(lib, name).argtypes = [_I, _I]
+        getattr(lib, name).restype = ctypes.c_int
     lib.conv1x1_error_string.argtypes = [ctypes.c_int]
     lib.conv1x1_error_string.restype = ctypes.c_char_p
     return lib
@@ -70,9 +74,10 @@ def conv1x1_bn_relu_stats_plain(x2d, w, A, B):
 # --------------------------------------------------------------------------
 
 def _check(x2d, w, consts):
+    if x2d.dtype not in _DTYPES or w.dtype != x2d.dtype:
+        raise TypeError(f"x2d, w: the kernels take bfloat16 or float32, both alike; got "
+                        f"{x2d.dtype} and {w.dtype}")
     for name, t in (("x2d", x2d), ("w", w)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
         if t.dim() != 2 or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: expected a contiguous, 16-byte aligned row-major "
                              f"matrix, got shape {tuple(t.shape)} strides {t.stride()}")
@@ -93,11 +98,13 @@ def _launch(name, x2d, w, consts):
     y = x2d.new_empty((m, cout))
     out = x2d.new_empty((2, cout), dtype=torch.float32)
     lib = _library()
+    suffix = _DTYPES[x2d.dtype]
+    name += suffix
     with torch.cuda.device(x2d.device):
         # one (2, Cout) row per row group of the grid; freed on return (the
         # caching allocator hands it only to work queued later on this
         # stream, which runs after both passes)
-        floats = lib.conv1x1_partial_floats(m, cout)
+        floats = getattr(lib, "conv1x1_partial_floats" + suffix)(m, cout)
         if floats < 0:
             raise RuntimeError(f"{name}: cannot read the device's cluster occupancy")
         partial = out.new_empty(floats)

@@ -14,11 +14,15 @@ name, so a reader finds it).
   keeps the reference's site keys (``"conv1"``, ``"layer4_1/conv2"``,
   ``"layer2_0/downsample"``); its kernels are PyTorch's OIHW.
 * **The walk** (``_walk_resnet``) visits the ResNet once over an ops object,
-  in NCHW with the model's channels-last strides. Its ``block_override``
-  hook hands whole identity bottlenecks to kernel #12
-  (``ops/bottleneck_block.py``). ``_CalibOps`` interprets it in float32 (the
-  fold's oracle, with ``maxes`` recording max|t| at every quantization
-  point); ``ops.bottleneck_block.FoldedBf16Ops`` in bf16.
+  in NCHW views with channels-last strides (the input's NHWC memory, and
+  every op keeps it), so an activation's memory is its NHWC tensor:
+  ``ops.bottleneck_block.FoldedBf16Ops`` hands it to the convolution kernel
+  (``ops/conv_bias.py``) without a copy, and that kernel raises on any other
+  layout. Its ``block_override`` hook hands whole identity bottlenecks to
+  kernel #12 (``ops/bottleneck_block.py``). ``_CalibOps`` interprets it in
+  float32 (the fold's oracle, with ``maxes`` recording max|t| at every
+  quantization point); ``FoldedBf16Ops`` in bf16, rounding once per
+  convolution as the reference does.
 * **The encoder surface**: ``fold_encoder_f32`` returns the embedding and
   the projection (the head's BatchNorm folded into its first dense layer).
 

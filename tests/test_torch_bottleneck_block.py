@@ -213,15 +213,19 @@ def test_f32_walk_records_the_references_maxima(models):
 
 def test_bf16_walk_matches_the_reference():
     """ResNet-50, side 64, B = 2, layer4_1/2 through the block (its plain
-    version here) against the JAX walk with its Pallas block. The port's
-    bf16 convolutions round their sums to bf16 before the float32 bias
-    (module docstring of ops/bottleneck_block.py): one extra rounding of
-    relative size <= 2^-9 at each of 49 convolutions, carried through the
-    residual stream, where JAX rounds once. Held to 2e-2 of the largest
-    embedding element (measured 6.7e-3) and a cosine above 0.9995 per row
-    (measured 0.99998). The port's walk with and without the block differs
-    by conv3's rounding before the shortcut's add at two blocks: 1e-2
-    (measured 3.0e-3; the JAX test allows 3e-2 between its two arms)."""
+    version here) against the JAX walk with its Pallas block. Each
+    convolution's float32 sum takes the bias and is rounded once, as the
+    reference's ``preferred_element_type=float32`` convolution is; the sums
+    run in another order, so an element can round to its other neighbour
+    (the first such flip on this input is at layer2_0/conv2, one element),
+    and 14 residual blocks carry the flips to the embedding: measured
+    6.5e-3 of the largest element, held to 1e-2 (the walk that rounded each
+    convolution twice measured 6.7e-3 here, held to 2e-2: the largest
+    difference does not tell one rounding from two, the test below does),
+    and a cosine above 0.99999 per row (measured 0.9999915; twice rounded
+    0.99998). The port's walk with and without the block differs by conv3's
+    rounding before the shortcut's add at two blocks: 1e-2 (measured
+    2.3e-3; the JAX test allows 3e-2 between its two arms)."""
     _, variables, model, images = _models("50")
     x = torch.from_numpy(images)
     want = f32(JB.make_folded_encoder_bf16(variables, "50", pallas_blocks=BLOCKS)(
@@ -230,8 +234,52 @@ def test_bf16_walk_matches_the_reference():
     plain_walk = TB.make_folded_encoder_bf16(model)(x)
     assert got.shape == (B, 2048) and got.dtype == torch.float32
     scale = np.abs(want).max()
-    assert np.abs(got.numpy() - want).max() <= 2e-2 * scale
+    assert np.abs(got.numpy() - want).max() <= 1e-2 * scale
     cos = (got.numpy() * want).sum(1) / np.linalg.norm(got.numpy(), axis=1) / np.linalg.norm(
         want, axis=1)
-    assert (cos > 0.9995).all(), cos
+    assert (cos > 0.99999).all(), cos
     assert float((got - plain_walk).abs().max()) <= 1e-2 * scale
+
+
+class _Recorder:
+    """An ops object that hands every call to ``ops`` and keeps each
+    result, with the op's name and site key."""
+
+    def __init__(self, ops):
+        self.ops, self.out = ops, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.ops, name)
+
+        def record(*args):
+            y = fn(*args)
+            if y is not None:
+                self.out.append((name, args[0] if isinstance(args[0], str) else "", y))
+            return y
+
+        return record
+
+
+def test_bf16_walk_rounds_once_per_convolution():
+    """The walks op by op, ResNet-50 at side 64, B = 2: the input, the stem,
+    the max pool, layer1's 13 ops and layer2_0/conv1 equal the JAX walk's in
+    all but at most 0.1% of elements, each within one bf16 ulp (measured:
+    bit-equal). A convolution that rounds its sum to bf16 before the float32
+    bias and rounds again (the walk's earlier route) differs from the
+    reference's in 14.2% of the stem's elements."""
+    _, variables, model, images = _models("50")
+    fw = JI._fold_resnet(variables["params"]["encoder"], variables["batch_stats"]["encoder"],
+                         "50")
+    want = _Recorder(JB.FoldedBf16Ops(fw))
+    JI._walk_resnet(want, "50", jnp.asarray(images), pool=True)
+    got = _Recorder(TB.FoldedBf16Ops(TI._fold_resnet(model.encoder, "50")))
+    with torch.no_grad():
+        TI._walk_resnet(got, "50", torch.from_numpy(images), pool=True)
+    first = [name for _, name, _ in got.out].index("layer2_0/conv1") + 1
+    assert len(got.out) == len(want.out) and first == 17
+    for (op, key, a), (_, _, b) in zip(want.out[:first], got.out[:first]):
+        a, b = torch.from_numpy(f32(a).copy()), b.float().permute(0, 2, 3, 1)
+        _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+        diff = (a - b).abs()
+        assert (diff <= torch.ldexp(torch.ones_like(a), e - 8)).all(), (op, key)
+        assert float((diff > 0).float().mean()) <= 1e-3, (op, key)

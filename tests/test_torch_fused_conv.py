@@ -235,3 +235,17 @@ def test_fused_site_count_per_threshold(monkeypatch):
         with torch.no_grad():
             encoder.eval()(x)
         assert not sites
+
+
+def test_kernel_checks_take_float32_and_refuse_float16():
+    """The wrapper's checks before a launch (here on CPU tensors): bf16 and
+    float32 pass (the float32 kernels keep y in x's dtype, as the reference
+    does), float16 and mixed dtypes raise."""
+    x2d, w = torch.zeros(64, 32), torch.zeros(16, 32)
+    A, B = torch.ones(32), torch.zeros(32)
+    for dt in (torch.float32, torch.bfloat16):
+        T._check(x2d.to(dt), w.to(dt), dict(A=A, B=B))
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        T._check(x2d.half(), w.half(), {})
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        T._check(x2d, w.bfloat16(), {})

@@ -1,8 +1,8 @@
 """The CUDA kernels on the card (the NT-Xent kernels of ``csrc/ntxent.cu``,
 the BatchNorm backward reduces of ``csrc/bn_epilogue.cu``, the 1x1
-convolution with statistics of ``csrc/conv1x1.cu`` and the whole bottleneck
-block of ``csrc/bottleneck_block.cu``), against their plain PyTorch
-versions.
+convolution with statistics of ``csrc/conv1x1.cu``, and the convolution with
+a bias / residual / ReLU epilogue of ``csrc/conv_bias.cu`` with the whole
+bottleneck block built on it), against their plain PyTorch versions.
 
 These tests need a CUDA card and ``nvcc``; without them they skip. They
 import no JAX, so they run where the card is, without the repository's
@@ -356,8 +356,10 @@ def test_conv1x1_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
     x2d = torch.randn(64, 32, device="cuda", generator=cuda).bfloat16()
     w = torch.randn(16, 32, device="cuda", generator=cuda).bfloat16()
-    with pytest.raises(TypeError, match="bfloat16"):
-        C.conv1x1_stats(x2d.float(), w.float())
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        C.conv1x1_stats(x2d.half(), w.half())
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        C.conv1x1_stats(x2d.float(), w)
     with pytest.raises(ValueError, match="row-major"):
         C.conv1x1_stats(x2d.T.contiguous().T, w)
     with pytest.raises(ValueError, match="multiples of 8"):
@@ -371,6 +373,102 @@ def test_conv1x1_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                 torch.zeros(32, device="cuda"))
     with pytest.raises(ValueError, match="several devices"):
         C.conv1x1_stats(x2d, w.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,cin,cout", [(1000, 96, 40), (300, 200, 136), (20000, 512, 256)],
+                         ids=["1000x96-40", "300x200-136", "20000x512-256"])
+def test_conv1x1_float32_kernels_match_plain_versions(cuda, m, cin, cout):
+    """The float32 instantiations (CUDA-core float32, no TF32) against the
+    plain version (cuBLAS float32 with TF32 off): y within 1e-5 of its
+    largest element (the same products summed in another order), s1 and s2
+    within rel 1e-5 of the float64 sums of the kernel's own y and of the
+    plain version's; ragged M, K and N; a second launch bit-equal."""
+    from simhand_tpu_torch.ops import conv1x1 as C
+
+    x2d, w, A, B = (t.float() for t in conv1x1_operands(cuda, m, cin, cout))
+    C.reset_launches()
+    for kernel, plain in ((lambda: C.conv1x1_stats(x2d, w), lambda: C.conv1x1_stats_plain(x2d, w)),
+                          (lambda: C.conv1x1_bn_relu_stats(x2d, w, A, B),
+                           lambda: C.conv1x1_bn_relu_stats_plain(x2d, w, A, B))):
+        (y, s1, s2), want = kernel(), plain()
+        torch.cuda.synchronize()
+        assert y.shape == (m, cout) and y.dtype == torch.float32
+        assert float((y - want[0]).abs().max()) <= 1e-5 * float(want[0].abs().max())
+        assert_stats_of(y, s1, s2)
+        for a, b in zip((s1, s2), want[1:]):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+        assert all(torch.equal(u, v) for u, v in zip(kernel(), (y, s1, s2)))
+    assert [fn.launches for fn in C.KERNELS] == [2, 2]
+
+
+# --------------------------------------------------------------------------
+# the convolution with a bias / residual / ReLU epilogue (ops/conv_bias.py)
+# --------------------------------------------------------------------------
+
+def conv_operands(gen, n, h, w, cin, cout, k):
+    """x, the tap-major weight with the scale of a folded convolution, the
+    float32 bias."""
+    x = torch.randn(n, h, w, cin, device="cuda", generator=gen).bfloat16()
+    wt = (torch.randn(cout, k * k * cin, device="cuda", generator=gen) / (k * k * cin) ** 0.5)
+    return x, wt.bfloat16(), 0.1 * torch.randn(cout, device="cuda", generator=gen)
+
+
+def assert_conv_within_one_ulp(got, want, x, w, kernel, stride, pads):
+    """y against the plain version: one bf16 ulp at the larger magnitude plus
+    2^-16 * sum |x||w| over the window (the float32 sums' other order)."""
+    from simhand_tpu_torch.ops import conv_bias as CB
+
+    a, b = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.ones_like(a), e - 8)
+    floor = 2.0**-16 * (CB.patches(x.float().abs(), kernel, stride, pads) @ w.float().abs().T)
+    assert ((a - b).abs() <= ulp + floor.view(a.shape)).all(), float((a - b).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,w,cin,cout,k,stride,padding", [
+    (2, 9, 11, 40, 72, 3, 1, "SAME"), (3, 16, 16, 64, 136, 3, 2, "SAME"),
+    (2, 32, 32, 3, 64, 7, 2, ((3, 3), (3, 3))), (4, 4, 4, 512, 512, 3, 1, "SAME"),
+    (1, 300, 2, 8, 8, 1, 1, "SAME"),
+], ids=["3x3s1-odd", "3x3s2", "stem", "layer4-3x3", "1x1-long-row"])
+def test_conv_bias_act_matches_plain_version(cuda, n, h, w, cin, cout, k, stride, padding):
+    """Stride 1 at odd H and W (taps past every edge read TMA's zero fill,
+    Cin and Cout not multiples of 64), stride 2 (element strides; XLA's (0,
+    1) pads), the stem's patch route (Cin = 3), layer4's 3x3 (eight images a
+    tile, BN 128) and a 1x1 given as one long row; each with and without the
+    residual and ReLU. A second launch is bit-equal."""
+    from simhand_tpu_torch.ops import conv_bias as CB
+
+    x, wt, b = conv_operands(cuda, n, h, w, cin, cout, k)
+    pads = CB.conv_pads(h, w, (k, k), stride, padding)
+    oh, ow = CB.out_size(h, w, (k, k), stride, pads)
+    res = torch.randn(n, oh, ow, cout, device="cuda", generator=cuda).bfloat16()
+    CB.reset_launches()
+    for relu, r in ((False, None), (True, res)):
+        kw = dict(kernel=(k, k), stride=stride, padding=padding, relu=relu, res=r)
+        got, want = CB.conv_bias_act(x, wt, b, **kw), CB.conv_bias_act_plain(x, wt, b, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (n, oh, ow, cout) and got.dtype == torch.bfloat16
+        assert_conv_within_one_ulp(got, want, x, wt, (k, k), stride, pads)
+        assert torch.equal(CB.conv_bias_act(x, wt, b, **kw), got)
+    assert CB.conv_bias_act.launches == 4
+
+
+@pytest.mark.gpu
+def test_conv_bias_act_refuses_what_the_kernel_does_not_take(cuda):
+    from simhand_tpu_torch.ops import conv_bias as CB
+
+    x, wt, b = conv_operands(cuda, 2, 8, 8, 16, 24, 3)
+    with pytest.raises(TypeError, match="bfloat16"):
+        CB.conv_bias_act(x.float(), wt, b, kernel=(3, 3))
+    with pytest.raises(ValueError, match="channels-last"):
+        CB.conv_bias_act(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), wt, b,
+                         kernel=(3, 3))
+    with pytest.raises(ValueError, match="res: expected"):
+        CB.conv_bias_act(x, wt, b, kernel=(3, 3), res=x[..., :8].contiguous())
+    with pytest.raises(ValueError, match="several devices"):
+        CB.conv_bias_act(x, wt, b.cpu(), kernel=(3, 3))
 
 
 # --------------------------------------------------------------------------
@@ -401,25 +499,29 @@ def block_differences(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("imgs,hw,cin,cm", [(256, (4, 4), 2048, 512), (4, (2, 3), 256, 128),
-                                             (9, (7, 7), 2048, 512)],
-                         ids=["layer4-128", "ragged-2x3", "layer4-224-part"])
+                                             (9, (7, 7), 2048, 512), (1, (32, 32), 256, 64)],
+                         ids=["layer4-128", "ragged-2x3", "layer4-224-part", "layer1-128"])
 def test_bottleneck_block_matches_plain_version(cuda, imgs, hw, cin, cm):
-    """The main path's shape (two images a block, 128 blocks), the JAX test's
-    non-square (2, 3) (one block, padded rows), and 7x7 (49 rows a block,
-    a 64-row tile). y within the JAX test's rtol = atol = 2e-2 of the plain
+    """The main path's shape (eight images a tile), the JAX test's
+    non-square (2, 3), 7x7 (two images, 98 rows a tile) and one image of
+    layer1 at 128x128 (32 x 32, four rows a tile; the whole-image design
+    refused it). y within the JAX test's rtol = atol = 2e-2 of the plain
     version (float32 sums of the same bf16 products in another order: an
     element of h1 or h2 that rounds to its other neighbour moves y), and at
     most 2% of y more than one bf16 ulp from it (measured 0.44-0.51% at
-    layer4 on an H100, four times that)."""
+    layer4 on an H100 by the earlier design, four times that)."""
     from simhand_tpu_torch.ops import bottleneck_block as BB
 
     args = block_operands(cuda, imgs, hw, cin, cm)
+    from simhand_tpu_torch.ops import conv_bias as CB
+
     BB.reset_launches()
+    CB.reset_launches()
     got = BB.bottleneck_block(*args, hw=hw)
     want = BB.bottleneck_block_plain(*args, hw=hw)
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == torch.bfloat16
-    assert BB.bottleneck_block.launches == 1
+    assert BB.bottleneck_block.launches == 1 and CB.conv_bias_act.launches == 3
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
     err, share = block_differences(got, want)
     print(f"bottleneck_block {imgs}x{hw} {cin}/{cm}: max abs err {err:.3e}, "
@@ -436,11 +538,8 @@ def test_bottleneck_block_refuses_what_the_kernel_does_not_take(cuda):
         BB.bottleneck_block(x.float(), w1, b1, w2, b2, w3, b3, hw=(4, 4))
     with pytest.raises(ValueError, match="w2"):
         BB.bottleneck_block(x, w1, b1, w2[:, :, :96], b2, w3, b3, hw=(4, 4))
-    with pytest.raises(ValueError, match="multiples of 64"):
-        BB.bottleneck_block(x[:, :96].contiguous(), w1[:, :96].contiguous(), b1, w2, b2,
-                            w3[:96].contiguous(), b3[:96].contiguous(), hw=(4, 4))
-    with pytest.raises(ValueError, match="shared memory"):     # layer1 at 128x128
-        args = block_operands(cuda, 1, (32, 32), 256, 64)
-        BB.bottleneck_block(*args, hw=(32, 32))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        BB.bottleneck_block(x[:, :100].contiguous(), w1[:, :100].contiguous(), b1, w2, b2,
+                            w3[:100].contiguous(), b3[:100].contiguous(), hw=(4, 4))
     with pytest.raises(ValueError, match="several devices"):
         BB.bottleneck_block(x, w1.cpu(), b1, w2, b2, w3, b3, hw=(4, 4))
