@@ -24,18 +24,23 @@
 4. holds each of the four fused BN+ReLU backward kernels (#5-#8, csrc/
    bn_epilogue.cu) against its plain PyTorch version in bf16 and float32 at
    the ResNet-50 step's stem (2,097,152 x 64), layer1-bn3 (524,288 x 256)
-   and layer4-bn3 (8,192 x 2,048) sites and a ragged 1,000 x 96: sums
-   within rel 1e-5 of their largest, no mask differences, dx and dres
-   equal bit for bit; times each (CUDA
-   events, torch.profiler, the plain version, the byte bound) and, at the
-   stem and layer1 sites, the exact route's backward it replaces;
+   and layer4-bn3 (8,192 x 2,048) sites and a ragged 1,000 x 96 (#7 on g,
+   x and r, #8 on the plain version's dres): sums within rel 1e-5 of their
+   largest, no mask differences in #7's dres, dx and dres equal bit for
+   bit, a second launch of each equal bit for bit; times each (CUDA
+   events, torch.profiler, the plain version, its own byte bound) and, at
+   the stem (#5+#6) and at layer1-bn3 and layer4-bn3 (#7+#8), the pair's
+   bound and the exact route's backward it replaces, by events and by
+   torch.profiler;
 5. runs the same step through the fused BN+ReLU encoder
    (bn_fused="epilogue"): its step-0 loss must equal bn_fused=
    "epilogue_xla"'s bit for bit and the exact route's within rel 5e-4, its
    gradients must agree with epilogue_xla's; five steps with finite losses
    and parameters that change, kernels #5/#6 launched 33 times and #7/#8
    16 times per step, #2/#4 once; the exact, epilogue and epilogue_xla
-   routes timed in turns, one eval step, a torch.profiler breakdown;
+   routes timed in turns, one eval step, a torch.profiler breakdown with
+   #7's and #8's device ms per step beside their bounds over the step's
+   own residual sites;
 6. runs two steps of the plain family (simhand-base), which must launch
    kernels #1 and #3 on every step;
 7. holds kernel #9 (the two reduces of the plain BatchNorm backward,
@@ -276,24 +281,42 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms_by_kernel(fn, iters: int) -> dict:
-    """Mean device time of fn() over iters calls, by kernel name: the
-    torch.profiler time of the kernels it launched, without the host's
-    enqueue time or the gaps."""
+def profiled_kernels(run, least: int = 1, tries: int = 3) -> list:
+    """The CUDA kernel rows of torch.profiler's key_averages() over run().
+    A session's device records can come back empty (seen on an H100 with
+    torch 2.11, many sessions into the process), so a session that
+    recorded fewer than ``least`` kernel launches is run again, up to
+    ``tries`` sessions, each retry said on stderr; then the script fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if sum(e.count for e in kernels) >= least and sum(
+                e.self_device_time_total for e in kernels) > 0:
+            return kernels
+        print(f"chip_smoke: profiler session {attempt} of {tries} recorded "
+              f"{sum(e.count for e in kernels)} kernel launches", file=sys.stderr)
+        time.sleep(1.0)
+    raise SmokeFailure("the profiler saw no device time")
+
+
+def device_ms_by_kernel(fn, iters: int) -> dict:
+    """Mean device time of fn() over iters calls, by kernel name: the
+    torch.profiler time of the kernels it launched, without the host's
+    enqueue time or the gaps."""
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    times = {e.key: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA}
-    require(sum(times.values()) > 0, "the profiler saw no device time")
-    return times
+
+    fn()
+    return {e.key: e.self_device_time_total / iters / 1e3
+            for e in profiled_kernels(run, least=iters)}
 
 
 def device_ms(fn, iters: int) -> float:
@@ -444,17 +467,17 @@ def profile_steps(step, state, batch, n: int = PROFILED_STEPS) -> dict:
     the same steps' wall time in which the card ran no kernel. The profiler
     slows the host, which lengthens the idle time."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def run():
+        nonlocal state, wall
         t0 = time.perf_counter()
         for _ in range(n):
             state, _ = step(state, batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    wall = 0.0
+    kernels = profiled_kernels(run, least=n)
     busy = sum(e.self_device_time_total for e in kernels) / n / 1e6
     print(f"profile: {n} steps, wall {wall * 1e3:.3f} ms/step, kernels {busy * 1e3:.3f} "
           f"ms/step, device idle {100 * (1 - busy / wall):.1f}% (profiler on)")
@@ -471,7 +494,10 @@ def profile_steps(step, state, batch, n: int = PROFILED_STEPS) -> dict:
            "profile_float_add_ms": sum(e.self_device_time_total for e in mixed) / n / 1e3}
     # the port's kernels and their second passes, by source
     for group, names in (("ntxent", ("ntxent_tile_kernel", "sum_splits")),
-                         ("bn_epilogue", ("bn_masked_", "bn_dual_reduce", "bn_sum_partials")),
+                         ("bn_epilogue", ("bn_masked_", "bn_dual_reduce", "bn_sum_partials",
+                                          "bn_res_", "bn_sum_ctas")),
+                         *BN_PROFILE_GROUPS.values(),
+                         ("bn_sum_partials", ("bn_sum_partials",)),
                          ("conv1x1", ("conv1x1_",)),
                          ("conv1x1_sum", ("conv1x1_sum_partials",)),
                          ("conv_bias", ("conv_bias_kernel",))):
@@ -581,22 +607,40 @@ def main_path(seed: int):
     return state, batch, launches, perf
 
 
+# per element of each BN kernel: the (M, C) planes it reads and writes, its
+# float32 (C,) vectors (constants in, sums out), its float32 operations
+BN_PLANES = {"masked_dual_reduce": 2, "masked_dx": 3,
+             "masked_dual_reduce_res": 4, "masked_dx_res": 3}    # g x; g x dx; g x r dres; dres x dx
+BN_VECTORS = {"masked_dual_reduce": 6, "masked_dx": 7,
+              "masked_dual_reduce_res": 6, "masked_dx_res": 5}
+BN_OPS = {"masked_dual_reduce": 8, "masked_dx": 11,
+          "masked_dual_reduce_res": 9, "masked_dx_res": 6}
+BN_PAIRS = {False: ("masked_dual_reduce", "masked_dx"),
+            True: ("masked_dual_reduce_res", "masked_dx_res")}
+# each BN kernel's profile group: its kernels, #7's second pass included
+# (#5's, bn_sum_partials, is #9's too and has a group of its own)
+BN_PROFILE_GROUPS = {
+    "masked_dual_reduce": ("bn_masked_reduce", ("bn_masked_reduce_kernel",)),
+    "masked_dx": ("bn_masked_dx", ("bn_masked_dx_kernel",)),
+    "masked_dual_reduce_res": ("bn_res_reduce", ("bn_res_reduce_kernel", "bn_sum_ctas")),
+    "masked_dx_res": ("bn_res_dx", ("bn_res_dx_kernel",)),
+}
+
+
 def bn_bound(name: str, m: int, c: int, esize: int) -> tuple[float, str]:
-    """Least time of a BN kernel: bytes (each (M, C) plane read or written
-    once, the float32 per-channel vectors once) over the memory rate, or its
-    float32 operations per element over the float32 rate, the larger."""
-    res, dx = name.endswith("_res"), "dx" in name
-    planes = 2 + res + (1 + res if dx else 0)            # g, x, r; dx, dres
-    vectors = 7 if dx else 4 + 2                           # constants; the sums
-    ops = float(m) * c * ((11 if dx else 8) + res)
-    t_bytes = (planes * m * c * esize + 4 * vectors * c) / HBM_BYTES_PER_S
-    t_ops = ops / FP32_OPS_PER_S
+    """Least time of a BN kernel: bytes (each of its (M, C) planes read or
+    written once, its float32 per-channel vectors once) over the memory
+    rate, or its float32 operations over the float32 rate, the larger."""
+    t_bytes = (BN_PLANES[name] * m * c * esize + 4 * BN_VECTORS[name] * c) / HBM_BYTES_PER_S
+    t_ops = float(m) * c * BN_OPS[name] / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
-def exact_backward_ms(x, r, g, iters: int) -> float:
+def exact_backward_ms(x, r, g, iters: int) -> tuple[float, float]:
     """The exact route's backward at a site: ReLU backward and the BatchNorm
-    backward of F.batch_norm through autograd (the port's BatchNorm2d)."""
+    backward of F.batch_norm through autograd (the port's BatchNorm2d); ms
+    by CUDA events over back-to-back calls (host enqueue included) and by
+    torch.profiler (the device time of its kernels alone)."""
     import torch
 
     from simhand_tpu_torch.models.layers import BatchNorm2d
@@ -610,12 +654,17 @@ def exact_backward_ms(x, r, g, iters: int) -> float:
         inputs.append(rr)
         y = y + rr
     y = torch.relu(y)
-    return cuda_ms(lambda: torch.autograd.grad(y, inputs, g, retain_graph=True), iters)
+
+    def backward():
+        return torch.autograd.grad(y, inputs, g, retain_graph=True)
+
+    return cuda_ms(backward, iters), device_ms(backward, iters)
 
 
 def bn_kernel_phase(seed: int) -> dict:
     """Kernels #5-#8 against their plain versions, bf16 and float32, at the
-    sites of BN_SHAPES."""
+    sites of BN_SHAPES: #5/#6 on g and x, #7 on g, x and r, #8 on the plain
+    version's dres; a second launch of each gives the same bits."""
     import torch
 
     from simhand_tpu_torch.models import bn_epilogue as E
@@ -638,7 +687,9 @@ def bn_kernel_phase(seed: int) -> dict:
             P = scale * inv
             g2d, x2d, r2d = E.as_rows(g), E.as_rows(x), E.as_rows(r)
             k = [v / m for v in E.masked_dual_reduce_plain(g2d, x2d, *cs)]
-            kr = [v / m for v in E.masked_dual_reduce_res_plain(g2d, x2d, r2d, *cs)]
+            *sums_r, dres2d = E.masked_dual_reduce_res_plain(g2d, x2d, r2d, *cs)
+            kr = [v / m for v in sums_r]
+            dres = E.from_rows(dres2d, r)
             cases = {
                 "masked_dual_reduce": (lambda: E.masked_dual_reduce(g, x, *cs),
                                        lambda: E.masked_dual_reduce_plain(g2d, x2d, *cs)),
@@ -648,54 +699,66 @@ def bn_kernel_phase(seed: int) -> dict:
                     lambda: E.masked_dual_reduce_res(g, x, r, *cs),
                     lambda: E.masked_dual_reduce_res_plain(g2d, x2d, r2d, *cs)),
                 "masked_dx_res": (
-                    lambda: E.masked_dx_res(g, x, r, *cs, P, *kr),
-                    lambda: E.masked_dx_res_plain(g2d, x2d, r2d, *cs, P, *kr)),
+                    lambda: E.masked_dx_res(dres, x, *cs[2:], P, *kr),
+                    lambda: E.masked_dx_res_plain(dres2d, x2d, *cs[2:], P, *kr)),
             }
             big = m * c >= 10**8
             for name, (kernel, plain) in cases.items():
-                got, want = kernel(), plain()
+                got, want, again = kernel(), plain(), kernel()
                 torch.cuda.synchronize()
-                row = {}
-                if "dx" not in name:
-                    rels = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want)]
-                    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+                got, want, again = ([t] if torch.is_tensor(t) else list(t)
+                                    for t in (got, want, again))
+                row = {"second_launch_bit_equal": all(torch.equal(a, b)
+                                                      for a, b in zip(got, again))}
+                require(row["second_launch_bit_equal"],
+                        f"{name} {label} {tag}: a second launch gave other bits")
+                if "reduce" in name:
+                    rels = [float((a - b).abs().max() / b.abs().max())
+                            for a, b in zip(got[:2], want[:2])]
+                    row["sums_rel_err"] = max(rels)
                     require(max(rels) <= 1e-5, f"{name} {label} {tag}: sums rel err {rels}")
-                else:
-                    got = (got,) if not isinstance(got, tuple) else got
-                    want = (want,) if not isinstance(want, tuple) else want
-                    got = [E.as_rows(t) for t in got]
-                    err = max(float((a.float() - b.float()).abs().max())
-                              for a, b in zip(got, want))
-                    row["not_bit_equal"] = sum(int((a != b).sum()) for a, b in zip(got, want))
-                    if name == "masked_dx_res":
-                        row["mask_diffs"] = int(((got[1] != 0) != (want[1] != 0)).sum())
+                # dres and dx: the same float32 operations, each rounded, in
+                # the same order: bit for bit in both dtypes (a mask
+                # difference would show here too)
+                planes = [(E.as_rows(a), b) for a, b in zip(got, want) if a.dim() > 1]
+                if planes:
+                    row["not_bit_equal"] = sum(int((a != b).sum()) for a, b in planes)
+                    if name == "masked_dual_reduce_res":
+                        (a, b), = planes
+                        row["mask_diffs"] = int(((a != 0) != (b != 0)).sum())
                         require(row["mask_diffs"] == 0, f"{name} {label} {tag}: mask differs")
-                    # the same float32 operations, each rounded, in the same
-                    # order: bit for bit in both dtypes (a mask difference
-                    # would show here too)
                     require(row["not_bit_equal"] == 0,
-                            f"{name} {label} {tag}: {row['not_bit_equal']} elements differ, "
-                            f"max abs err {err}")
-                row["max_abs_err"] = err
+                            f"{name} {label} {tag}: {row['not_bit_equal']} elements differ")
+                row["max_abs_err"] = max(
+                    float(((E.as_rows(a) if a.dim() > 1 else a).float() - b.float()).abs().max())
+                    for a, b in zip(got, want))
                 row["ms"] = cuda_ms(kernel, 20 if big else 50)
                 if dtype == torch.bfloat16:
-                    row["device_ms"] = device_ms(kernel, 10)
+                    by_kernel = device_ms_by_kernel(kernel, 10)
+                    row["device_ms"] = sum(by_kernel.values())
+                    # the reduces' second pass, the fixed-order sum of partials
+                    row["sum_device_ms"] = sum(v for k_, v in by_kernel.items() if "bn_sum_" in k_)
                 row["plain_ms"] = cuda_ms(plain, 5)
                 row["bound_ms"], row["bound_by"] = bn_bound(name, m, c, x.element_size())
                 report[name][f"{label}_{tag}"] = row
                 print(f"bn kernel {name} {label} {tag} ({m}x{c}): " + " ".join(
                     f"{k_}={v:.4g}" if isinstance(v, float) else f"{k_}={v}"
                     for k_, v in row.items()))
-            if dtype == torch.bfloat16 and label in ("stem", "layer1_bn3"):
-                res = label == "layer1_bn3"
-                exact = exact_backward_ms(x, r if res else None, g, 20)
-                pair = ("masked_dual_reduce_res", "masked_dx_res") if res else (
-                    "masked_dual_reduce", "masked_dx")
-                for name in pair:
-                    report[name][f"{label}_{tag}"]["exact_pair_ms"] = exact
-                print(f"bn exact route backward {label} bf16: {exact:.4f} ms against the pair "
-                      f"{sum(report[n][f'{label}_{tag}']['ms'] for n in pair):.4f} ms")
-            del cases, x, r, g, g2d, x2d, r2d
+            if dtype == torch.bfloat16 and label != "ragged":
+                res = label != "stem"
+                pair = BN_PAIRS[res]
+                exact, exact_device = exact_backward_ms(x, r if res else None, g, 20)
+                rows = [report[n][f"{label}_{tag}"] for n in pair]
+                pair_bound = sum(row["bound_ms"] for row in rows)
+                for row in rows:
+                    row.update(exact_pair_ms=exact, exact_pair_device_ms=exact_device,
+                               pair_bound_ms=pair_bound)
+                pair_device = sum(row["device_ms"] for row in rows)
+                print(f"bn pair {pair[0]}+{pair[1]} {label} bf16: device {pair_device:.4f} ms "
+                      f"(events {sum(row['ms'] for row in rows):.4f}), bound "
+                      f"{pair_bound:.4f} ms ({100 * pair_bound / pair_device:.1f}%); exact "
+                      f"route backward device {exact_device:.4f} ms, events {exact:.4f} ms")
+            del cases, x, r, g, g2d, x2d, r2d, dres, dres2d
             torch.cuda.empty_cache()
     return report
 
@@ -771,11 +834,12 @@ def epilogue_path(seed: int, exact_state, batch, exact_loss0: float) -> tuple[di
     require(all(bn[n] == BN_PER_STEP[n] * STEPS for n in bn), f"BN kernel launches {bn}")
     require(ntx["weighted_ntxent_denominator"] == STEPS and ntx["weighted_grad_rows"] == STEPS,
             f"NT-Xent kernels #2/#4 did not launch on every epilogue step: {ntx}")
-    step_bound = sum(bn_bound(n, m, c, es)[0] for m, c, es, res in sites
-                     for n in (("masked_dual_reduce_res", "masked_dx_res") if res else
-                               ("masked_dual_reduce", "masked_dx")))
+    kernel_bound = {n: sum(bn_bound(n, m, c, es)[0] for m, c, es, res in sites
+                           if n in BN_PAIRS[res]) for n in BN_REPLACES}
+    step_bound = sum(kernel_bound.values())
     print(f"epilogue sites per step: {len(sites)} ({sum(s[3] for s in sites)} with a "
-          f"residual); byte bound of #5-#8 {step_bound:.4f} ms/step")
+          f"residual); bound of #5-#8 {step_bound:.4f} ms/step: " + ", ".join(
+              f"{n} {v:.4f}" for n, v in kernel_bound.items()))
 
     mean_ms, blocks = in_turns(steps, states, batch, ("exact", "epilogue", "epilogue_xla",
                                                        "epilogue_xla", "epilogue", "exact"))
@@ -791,8 +855,15 @@ def epilogue_path(seed: int, exact_state, batch, exact_loss0: float) -> tuple[di
         + f"; eval {eval_loss}; blocks {blocks}")
     perf = {"step0_loss": le, "step0_grad_worst_rel": worst, "step0_grad_all_rel": total,
             "step0_self_worst_rel": self_worst, "step0_self_all_rel": self_total,
-            "step_ms": mean_ms, "bn_bound_ms_per_step": step_bound, "step_ms_blocks": blocks}
+            "step_ms": mean_ms, "bn_bound_ms_per_step": step_bound, "step_ms_blocks": blocks,
+            "bn_kernel_bound_ms_per_step": kernel_bound}
     perf.update(profile_steps(steps["epilogue"], states["epilogue"], batch))
+    for n, (group, _) in BN_PROFILE_GROUPS.items():
+        ms = perf[f"profile_{group}_ms"]
+        if n == "masked_dual_reduce":             # the step runs no #9: the sum pass is #5's
+            ms += perf["profile_bn_sum_partials_ms"]
+        print(f"epilogue step: {n} {ms:.4f} ms/step of device time against its bound "
+              f"{kernel_bound[n]:.4f} ms/step over the step's own sites")
     del states, steps
     return launches, perf
 
@@ -1798,9 +1869,11 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES["bn_epilogue"],
             "replaces": BN_REPLACES[name], "launches": bn_launches[name],
-            **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
-                                        "bound_ms", "bound_by")},
-            "library_ms": None, "exact_pair_ms": main_row["exact_pair_ms"],
+            **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "sum_device_ms",
+                                        "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            **{k: main_row[k] for k in ("exact_pair_ms", "exact_pair_device_ms",
+                                        "pair_bound_ms")},
             "at": shapes,
         })
     main_row = fused_bn_report["bn_backward_reduces"]["stem_bf16"]

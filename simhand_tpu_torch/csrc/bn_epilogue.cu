@@ -1,22 +1,24 @@
 // BatchNorm backward kernels for Hopper (sm_90a), bf16 or float32 planes:
-// the fused BatchNorm + ReLU backward, and the two reduces of the plain
-// BatchNorm backward.
+// the fused BatchNorm + ReLU backward, with and without a residual, and the
+// two reduces of the plain BatchNorm backward.
 //
 // Replaces the four Pallas TPU kernels of simhand_tpu/models/bn_epilogue.py:
-//   masked_dual_reduce (RES = false) <- masked_dual_reduce / _masked_reduce_kernel
-//   masked_dual_reduce (RES = true)  <- _bn_add_relu_bwd / _dual_reduce_res_kernel
-//   masked_dx          (RES = false) <- masked_dx / _dx_kernel
-//   masked_dx          (RES = true)  <- _bn_add_relu_bwd / _dx_res_kernel
+//   masked_dual_reduce      <- masked_dual_reduce / _masked_reduce_kernel      (#5)
+//   masked_dx               <- masked_dx / _dx_kernel                          (#6)
+//   masked_dual_reduce_res  <- _bn_add_relu_bwd / _dual_reduce_res_kernel      (#7)
+//   masked_dx_res           <- _bn_add_relu_bwd / _dx_res_kernel               (#8)
 // and the one of simhand_tpu/models/fused_bn.py:
-//   dual_reduce                      <- bn_backward_reduces / _dual_reduce_kernel
+//   dual_reduce             <- bn_backward_reduces / _dual_reduce_kernel       (#9)
 //
 // What they compute, per channel c of the row-major (M, C) planes g, x and
-// (with RES) r, with float32 per-channel constants read from the card:
+// (#7) r, with float32 per-channel constants read from the card:
 //   y    = A x + B (+ r)           the forward's pre-activation, in float32
-//   dy   = y > 0 ? g : 0           the ReLU mask, recomputed, never stored
+//   dy   = y > 0 ? g : 0           the ReLU mask, recomputed
 //   xhat = C x + D
-//   reduce:  sum_rows dy, sum_rows dy * xhat            -> (2, C) float32
-//   dx:      dx = P (dy - k1 - xhat k2) in the planes' dtype; RES: dres = dy
+//   #5, #7:  sum_rows dy, sum_rows dy * xhat            -> (2, C) float32
+//   #7:      dres = dy in the planes' dtype (dy is g or 0: no rounding)
+//   #6:      dx = P (dy - k1 - xhat k2) in the planes' dtype
+//   #8:      the same dx with dy read back from dres: no g, r, A or B
 // dual_reduce takes no mask: dy = g and xhat = (x - mu) * inv (subtract,
 // then multiply, as fused_bn.py does), with mu and inv float32 vectors.
 // Every product and sum is a separately rounded float32 operation
@@ -25,28 +27,53 @@
 // dres equal the plain version's bit for bit.
 //
 // What bounds them on this card: memory. Each element costs a handful of
-// float32 operations against 4 (reduce) to 10 (dx with a residual) bytes
-// of bf16 traffic, far below the card's operations-per-byte balance. At
-// the ResNet-50 step's stem site (M = 2,097,152, C = 64, bf16) the reduce
-// moves 0.54 GB: 0.160 ms at 3.35 TB/s.
+// float32 operations against 4 to 8 bytes of bf16 traffic, far below the
+// card's operations-per-byte balance. The residual pair moves 7 planes, the
+// least a two-pass design can: #7 reads g, x and r and writes dres (4
+// planes), #8 reads dres and x and writes dx (3). At layer1-bn3 of the
+// ResNet-50 step (524,288 x 256, bf16) that is 0.3205 + 0.2404 ms at
+// 3.35 TB/s.
 //
-// Design. The Pallas grid walked the rows of a column tile in order and
-// carried the sums in VMEM scratch; CUDA blocks run in no order. Here a
-// block of 32 x 8 threads owns 32 channels (one per thread along x, so a
-// warp reads 32 neighbouring elements of a row) and a range of rows, which
-// its 8 row lanes walk with a stride of 8. Each thread loads its channel's
-// constants once and keeps its sums in registers. The reduce writes one
-// partial per row range; a second kernel adds the partials of each channel
-// in a fixed order, so the sums are deterministic (no atomics). The masked
-// reduces and dual_reduce share that structure (reduce_rows) and differ only
-// in the two terms of an element. The dx pass
-// is elementwise and needs no second pass. Rows and channels are masked at
-// the edges, so any M and C work. A simple design: wider loads, TMA and
-// fusing the two passes' reads are later work.
+// #5, #6 and #9: a block of 32 x 8 threads owns 32 channels (one per thread
+// along x, so a warp reads 32 neighbouring elements of a row) and a range of
+// rows, which its 8 row lanes walk with a stride of 8. Each thread loads its
+// channel's constants once and keeps its sums in registers. A reduce writes
+// one partial per row range; a second kernel adds the partials of each
+// channel in a fixed order, so the sums are deterministic (no atomics).
+// Rows and channels are masked at the edges, so any M and C work.
+//
+// #7 and #8, redesigned for Hopper:
+// - A persistent grid (two CTAs an SM, from the wrapper) in which each CTA
+//   takes one contiguous share of the rows: its bytes of every plane are one
+//   span, read once, front to back.
+// - A ring of stages in shared memory (8 KB of each plane a stage; 4 stages
+//   for #7's three planes, 6 for #8's two) filled by 1-D bulk copies
+//   (cp.async.bulk, no tensor map, so the host encodes nothing). A ninth
+//   warp produces: one thread waits for a free stage, posts its bytes on
+//   the stage's full barrier and issues one copy a plane. Up to 192 KB an SM
+//   is in flight.
+// - 256 consumer threads; each owns 8 consecutive channels (one 16-byte
+//   vector of bf16, two of float32) at a fixed offset of every row, since C
+//   divides 2,048 (every ResNet site, 64-2,048), and so keeps its channels'
+//   constants and, in #7, its 16 running sums in registers. A warp reads a
+//   stage's rows as 512 contiguous bytes and writes dres or dx with 16-byte
+//   stores: whole 128-byte lines. Stores need no wait, so the ring's next
+//   loads overlap them.
+// - #7 adds the sums of the threads that share channels through shared
+//   memory, row lane after row lane, writes one partial per CTA, and a
+//   second kernel adds the CTAs' partials in their order (sixteen row lanes
+//   of CTAs, then the lanes in order). A last-CTA ticket would leave one CTA
+//   reading every partial: 264 x 2C floats, 4.3 MB at layer4 (C = 2,048).
+// - Any other shape or address (C not dividing 2,048, a base pointer that
+//   is not 16-byte aligned) takes a plain per-element walk of the same CTA's
+//   rows inside the same kernels: thread t owns channels t, t + 256, ...
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <initializer_list>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -63,13 +90,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 // dy and xhat of element i, in the plain version's order of operations
-template <typename T, bool RES>
+template <typename T>
 __device__ __forceinline__ void masked(const T* __restrict__ g, const T* __restrict__ x,
-                                       const T* __restrict__ r, size_t i, float a, float b,
-                                       float c, float d, float& dy, float& xhat) {
+                                       size_t i, float a, float b, float c, float d, float& dy,
+                                       float& xhat) {
   const float xv = to_f32(x[i]);
-  float y = __fadd_rn(__fmul_rn(xv, a), b);
-  if (RES) y = __fadd_rn(y, to_f32(r[i]));
+  const float y = __fadd_rn(__fmul_rn(xv, a), b);
   dy = y > 0.f ? to_f32(g[i]) : 0.f;
   xhat = __fadd_rn(__fmul_rn(xv, c), d);
 }
@@ -105,18 +131,18 @@ __device__ __forceinline__ void reduce_rows(int c, int M, int C, int rows_per_bl
   }
 }
 
-template <typename T, bool RES>
+// kernel #5
+template <typename T>
 __global__ void __launch_bounds__(TX * TY)
 bn_masked_reduce_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                        const T* __restrict__ r, const float* __restrict__ A,
-                        const float* __restrict__ B, const float* __restrict__ Cc,
-                        const float* __restrict__ D, int M, int C, int rows_per_block,
-                        float* __restrict__ dst) {
+                        const float* __restrict__ A, const float* __restrict__ B,
+                        const float* __restrict__ Cc, const float* __restrict__ D, int M, int C,
+                        int rows_per_block, float* __restrict__ dst) {
   const int c = (int)(blockIdx.x * TX + threadIdx.x);
   float a = 0.f, b = 0.f, cc = 0.f, d = 0.f;
   if (c < C) a = A[c], b = B[c], cc = Cc[c], d = D[c];
   reduce_rows(c, M, C, rows_per_block, [&](size_t i, float& dy, float& xhat) {
-    masked<T, RES>(g, x, r, i, a, b, cc, d, dy, xhat);
+    masked<T>(g, x, i, a, b, cc, d, dy, xhat);
   }, dst);
 }
 
@@ -145,14 +171,15 @@ __global__ void bn_sum_partials_kernel(const float* __restrict__ partial, int sp
   out[i] = s;
 }
 
-template <typename T, bool RES>
+// kernel #6
+template <typename T>
 __global__ void __launch_bounds__(TX * TY)
 bn_masked_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                    const T* __restrict__ r, const float* __restrict__ A,
-                    const float* __restrict__ B, const float* __restrict__ Cc,
-                    const float* __restrict__ D, const float* __restrict__ P,
-                    const float* __restrict__ K1, const float* __restrict__ K2, int M,
-                    int C, int rows_per_block, T* __restrict__ dx, T* __restrict__ dres) {
+                    const float* __restrict__ A, const float* __restrict__ B,
+                    const float* __restrict__ Cc, const float* __restrict__ D,
+                    const float* __restrict__ P, const float* __restrict__ K1,
+                    const float* __restrict__ K2, int M, int C, int rows_per_block,
+                    T* __restrict__ dx) {
   const int c = (int)(blockIdx.x * TX + threadIdx.x);
   if (c >= C) return;
   const float a = A[c], b = B[c], cc = Cc[c], d = D[c], p = P[c], k1 = K1[c], k2 = K2[c];
@@ -162,9 +189,8 @@ bn_masked_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
   for (int row = row0 + (int)threadIdx.y; row < row_end; row += TY) {
     const size_t i = (size_t)row * C + c;
     float dy, xhat;
-    masked<T, RES>(g, x, r, i, a, b, cc, d, dy, xhat);
+    masked<T>(g, x, i, a, b, cc, d, dy, xhat);
     dx[i] = from_f32<T>(__fmul_rn(p, __fsub_rn(__fsub_rn(dy, k1), __fmul_rn(xhat, k2))));
-    if (RES) dres[i] = from_f32<T>(dy);
   }
 }
 
@@ -182,14 +208,13 @@ int reduce_then_sum(First first, int C, int splits, void* partial, void* out,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool RES>
-int launch_reduce(const void* g, const void* x, const void* r, const void* const* consts,
-                  int M, int C, int rows_per_block, int splits, void* partial, void* out,
-                  cudaStream_t s) {
+template <typename T>
+int launch_reduce(const void* g, const void* x, const void* const* consts, int M, int C,
+                  int rows_per_block, int splits, void* partial, void* out, cudaStream_t s) {
   const dim3 grid((C + TX - 1) / TX, splits);
   return reduce_then_sum([&](float* dst) {
-    bn_masked_reduce_kernel<T, RES><<<grid, dim3(TX, TY), 0, s>>>(
-        static_cast<const T*>(g), static_cast<const T*>(x), static_cast<const T*>(r),
+    bn_masked_reduce_kernel<T><<<grid, dim3(TX, TY), 0, s>>>(
+        static_cast<const T*>(g), static_cast<const T*>(x),
         static_cast<const float*>(consts[0]), static_cast<const float*>(consts[1]),
         static_cast<const float*>(consts[2]), static_cast<const float*>(consts[3]), M, C,
         rows_per_block, dst);
@@ -208,18 +233,16 @@ int launch_dual_reduce(const void* g, const void* x, const void* mu, const void*
   }, C, splits, partial, out, s);
 }
 
-template <typename T, bool RES>
-int launch_dx(const void* g, const void* x, const void* r, const void* const* consts,
-              int M, int C, int rows_per_block, int blocks_y, void* dx, void* dres,
-              cudaStream_t s) {
+template <typename T>
+int launch_dx(const void* g, const void* x, const void* const* consts, int M, int C,
+              int rows_per_block, int blocks_y, void* dx, cudaStream_t s) {
   const dim3 grid((C + TX - 1) / TX, blocks_y);
-  bn_masked_dx_kernel<T, RES><<<grid, dim3(TX, TY), 0, s>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x), static_cast<const T*>(r),
+  bn_masked_dx_kernel<T><<<grid, dim3(TX, TY), 0, s>>>(
+      static_cast<const T*>(g), static_cast<const T*>(x),
       static_cast<const float*>(consts[0]), static_cast<const float*>(consts[1]),
       static_cast<const float*>(consts[2]), static_cast<const float*>(consts[3]),
       static_cast<const float*>(consts[4]), static_cast<const float*>(consts[5]),
-      static_cast<const float*>(consts[6]), M, C, rows_per_block, static_cast<T*>(dx),
-      static_cast<T*>(dres));
+      static_cast<const float*>(consts[6]), M, C, rows_per_block, static_cast<T*>(dx));
   return (int)cudaGetLastError();
 }
 
@@ -229,68 +252,428 @@ bool bad_grid(int M, int C, int rows_per_block, int blocks_y) {
          (long long)rows_per_block * (blocks_y - 1) >= M;
 }
 
+// ---- kernels #7 and #8: the residual pair ------------------------------------
+
+constexpr int RES_THREADS = 256;                 // consumers: 8 warps
+constexpr int RES_WARPS = RES_THREADS / 32;
+constexpr int SPAN = RES_THREADS * 8;            // channels of one row lane of a CTA
+constexpr int STAGE_PLANE = 8192;                // bytes of a plane in a stage
+constexpr int SUM_LANES = 16;                    // row lanes of the partials' sum
+
+template <int PLANES, int N>
+struct Ring {
+  static constexpr int STAGES = N;
+  static constexpr int BYTES = STAGES * PLANES * STAGE_PLANE;
+  static constexpr int SMEM = BYTES + 2 * 8 * STAGES;   // the stages, full and empty barriers
+};
+using ReduceRing = Ring<3, 4>;
+using DxRing = Ring<2, 6>;
+static_assert(ReduceRing::BYTES >= 2 * SPAN * 4,
+              "the drained ring holds #7's cross-lane sums");
+
+// 8 consecutive values at p (16-byte aligned) as float32, and back
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x, v[2 * j + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// Streams the CTA's rows [row0, row0 + rows) of the PLANES row-major (M, C)
+// planes src through the ring at smem. The producer warp (the last) returns
+// false at once; one of its threads keeps the ring full. Each consumer thread
+// calls body(stage, first, n) for every stage in order, with stage[p] the
+// stage's rows of plane p, which are rows [first, first + n) of the plane,
+// then returns true once every stage has been consumed.
+template <typename T, int PLANES, typename R, typename Body>
+__device__ __forceinline__ bool ring_rows(uint8_t* smem, const T* const (&src)[PLANES], int C,
+                                          int row0, int rows, Body body) {
+  constexpr int STAGES = R::STAGES;
+  const int stage_rows = STAGE_PLANE / (C * (int)sizeof(T));
+  const int n_stages = (rows + stage_rows - 1) / stage_rows;
+  const uint32_t full0 = smem_u32(smem + R::BYTES), empty0 = full0 + 8 * STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, RES_WARPS);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= RES_THREADS) {
+    if (threadIdx.x == RES_THREADS) {
+      for (int k = 0; k < n_stages; ++k) {
+        const int s = k % STAGES;
+        if (k >= STAGES) mbar_wait(empty0 + 8 * s, (k / STAGES - 1) & 1);
+        const int first = row0 + k * stage_rows;
+        const uint32_t bytes = (uint32_t)(min(stage_rows, row0 + rows - first) * C * (int)sizeof(T));
+        mbar_expect_tx(full0 + 8 * s, PLANES * bytes);
+#pragma unroll
+        for (int p = 0; p < PLANES; ++p)
+          bulk_load(smem_u32(smem + (s * PLANES + p) * STAGE_PLANE), src[p] + (size_t)first * C,
+                    bytes, full0 + 8 * s);
+      }
+    }
+    return false;
+  }
+  for (int k = 0; k < n_stages; ++k) {
+    const int s = k % STAGES;
+    mbar_wait(full0 + 8 * s, (k / STAGES) & 1);
+    const T* stage[PLANES];
+#pragma unroll
+    for (int p = 0; p < PLANES; ++p)
+      stage[p] = reinterpret_cast<const T*>(smem + (s * PLANES + p) * STAGE_PLANE);
+    const int first = row0 + k * stage_rows;
+    body(stage, first, min(stage_rows, row0 + rows - first));
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty0 + 8 * s);
+  }
+  return true;
+}
+
+// Kernel #7. The CTA's rows are [blockIdx.x * rows_per_cta, +rows_per_cta);
+// it writes their dres and its two partial sums, dst = partial + (bx, 2, C).
+template <typename T>
+__global__ void __launch_bounds__(RES_THREADS + 32, 2)
+bn_res_reduce_kernel(const T* __restrict__ g, const T* __restrict__ x, const T* __restrict__ r,
+                     const float* __restrict__ A, const float* __restrict__ B,
+                     const float* __restrict__ Cc, const float* __restrict__ D, int M, int C,
+                     int rows_per_cta, int use_ring, T* __restrict__ dres,
+                     float* __restrict__ partial) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int row0 = (int)blockIdx.x * rows_per_cta;
+  const int rows = min(M, row0 + rows_per_cta) - row0;
+  float* __restrict__ dst = partial + (size_t)blockIdx.x * 2 * C;
+
+  if (!use_ring) {
+    // the plain per-element walk of the same rows
+    if (threadIdx.x >= RES_THREADS) return;
+    for (int c = (int)threadIdx.x; c < C; c += RES_THREADS) {
+      const float a = A[c], b = B[c], cc = Cc[c], d = D[c];
+      float sdy = 0.f, sdyx = 0.f;
+#pragma unroll 4
+      for (int row = row0; row < row0 + rows; ++row) {
+        const size_t i = (size_t)row * C + c;
+        const float xv = to_f32(x[i]);
+        const float y = __fadd_rn(__fadd_rn(__fmul_rn(xv, a), b), to_f32(r[i]));
+        const float dy = y > 0.f ? to_f32(g[i]) : 0.f;
+        const float xhat = __fadd_rn(__fmul_rn(xv, cc), d);
+        sdy = __fadd_rn(sdy, dy);
+        sdyx = __fadd_rn(sdyx, __fmul_rn(dy, xhat));
+        dres[i] = from_f32<T>(dy);
+      }
+      dst[c] = sdy;
+      dst[C + c] = sdyx;
+    }
+    return;
+  }
+
+  const int groups = C / 8, lanes = RES_THREADS / groups;
+  const int lane = (int)threadIdx.x / groups, c0 = ((int)threadIdx.x % groups) * 8;
+  float a[8], b[8], cc[8], d[8], sdy[8], sdyx[8];
+  if (threadIdx.x < RES_THREADS) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      a[j] = A[c0 + j], b[j] = B[c0 + j], cc[j] = Cc[c0 + j], d[j] = D[c0 + j];
+      sdy[j] = 0.f, sdyx[j] = 0.f;
+    }
+  }
+  const T* const src[3] = {g, x, r};
+  const bool consumer = ring_rows<T, 3, ReduceRing>(
+      smem, src, C, row0, rows, [&](const T* const* st, int first, int n) {
+#pragma unroll 2
+        for (int row = lane; row < n; row += lanes) {
+          const int off = row * C + c0;
+          float gv[8], xv[8], rv[8], dy[8];
+          load8(st[0] + off, gv);
+          load8(st[1] + off, xv);
+          load8(st[2] + off, rv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float y = __fadd_rn(__fadd_rn(__fmul_rn(xv[j], a[j]), b[j]), rv[j]);
+            dy[j] = y > 0.f ? gv[j] : 0.f;
+            const float xhat = __fadd_rn(__fmul_rn(xv[j], cc[j]), d[j]);
+            sdy[j] = __fadd_rn(sdy[j], dy[j]);
+            sdyx[j] = __fadd_rn(sdyx[j], __fmul_rn(dy[j], xhat));
+          }
+          store8(dres + (size_t)(first + row) * C + c0, dy);
+        }
+      });
+  if (!consumer) return;
+
+  // the row lanes' sums of each channel, added lane after lane, through the
+  // drained ring: red[q][lane][c], q = 0 for sum dy, 1 for sum dy * xhat
+  float* red = reinterpret_cast<float*>(smem);
+  named_sync(1, RES_THREADS);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    red[lane * C + c0 + j] = sdy[j];
+    red[SPAN + lane * C + c0 + j] = sdyx[j];
+  }
+  named_sync(1, RES_THREADS);
+  for (int i = (int)threadIdx.x; i < 2 * C; i += RES_THREADS) {
+    const int q = i / C, c = i - q * C;
+    float s = 0.f;
+    for (int l = 0; l < lanes; ++l) s = __fadd_rn(s, red[q * SPAN + l * C + c]);
+    dst[i] = s;
+  }
+}
+
+// Kernel #8: dx of the CTA's rows from dres and x.
+template <typename T>
+__global__ void __launch_bounds__(RES_THREADS + 32, 2)
+bn_res_dx_kernel(const T* __restrict__ dres, const T* __restrict__ x,
+                 const float* __restrict__ Cc, const float* __restrict__ D,
+                 const float* __restrict__ P, const float* __restrict__ K1,
+                 const float* __restrict__ K2, int M, int C, int rows_per_cta, int use_ring,
+                 T* __restrict__ dx) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int row0 = (int)blockIdx.x * rows_per_cta;
+  const int rows = min(M, row0 + rows_per_cta) - row0;
+
+  if (!use_ring) {
+    if (threadIdx.x >= RES_THREADS) return;
+    for (int c = (int)threadIdx.x; c < C; c += RES_THREADS) {
+      const float cc = Cc[c], d = D[c], p = P[c], k1 = K1[c], k2 = K2[c];
+#pragma unroll 4
+      for (int row = row0; row < row0 + rows; ++row) {
+        const size_t i = (size_t)row * C + c;
+        const float xhat = __fadd_rn(__fmul_rn(to_f32(x[i]), cc), d);
+        dx[i] = from_f32<T>(
+            __fmul_rn(p, __fsub_rn(__fsub_rn(to_f32(dres[i]), k1), __fmul_rn(xhat, k2))));
+      }
+    }
+    return;
+  }
+
+  const int groups = C / 8, lanes = RES_THREADS / groups;
+  const int lane = (int)threadIdx.x / groups, c0 = ((int)threadIdx.x % groups) * 8;
+  float cc[8], d[8], p[8], k1[8], k2[8];
+  if (threadIdx.x < RES_THREADS) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      cc[j] = Cc[c0 + j], d[j] = D[c0 + j], p[j] = P[c0 + j], k1[j] = K1[c0 + j],
+      k2[j] = K2[c0 + j];
+  }
+  const T* const src[2] = {dres, x};
+  ring_rows<T, 2, DxRing>(smem, src, C, row0, rows,
+                          [&](const T* const* st, int first, int n) {
+#pragma unroll 2
+    for (int row = lane; row < n; row += lanes) {
+      const int off = row * C + c0;
+      float dy[8], xv[8], out[8];
+      load8(st[0] + off, dy);
+      load8(st[1] + off, xv);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float xhat = __fadd_rn(__fmul_rn(xv[j], cc[j]), d[j]);
+        out[j] = __fmul_rn(p[j], __fsub_rn(__fsub_rn(dy[j], k1[j]), __fmul_rn(xhat, k2[j])));
+      }
+      store8(dx + (size_t)(first + row) * C + c0, out);
+    }
+  });
+}
+
+// out[i] = sum over the splits s of partial[s * count + i] in a fixed order:
+// row lane ly of a block adds splits ly, ly + SUM_LANES, ... in order, then
+// lane 0 adds the lanes' sums in order.
+__global__ void __launch_bounds__(32 * SUM_LANES)
+bn_sum_ctas_kernel(const float* __restrict__ partial, int splits, int count,
+                     float* __restrict__ out) {
+  __shared__ float part[SUM_LANES][32];
+  const int i = (int)(blockIdx.x * 32 + threadIdx.x);
+  float s = 0.f;
+  if (i < count) {
+#pragma unroll 4
+    for (int k = (int)threadIdx.y; k < splits; k += SUM_LANES)
+      s = __fadd_rn(s, partial[(size_t)k * count + i]);
+  }
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && i < count) {
+    float t = 0.f;
+#pragma unroll
+    for (int l = 0; l < SUM_LANES; ++l) t = __fadd_rn(t, part[l][threadIdx.x]);
+    out[i] = t;
+  }
+}
+
+// the ring's shapes: 8 channels a thread at a fixed offset of every row,
+// 16-byte aligned rows and bases
+template <typename T>
+bool ring_fits(int C, std::initializer_list<const void*> ptrs) {
+  if (C % 8 != 0 || SPAN % C != 0 || C * (int)sizeof(T) > STAGE_PLANE) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
+// raises the kernel's dynamic shared memory to smem and asks for the largest
+// carve-out, once per device
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int smem, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+template <typename T>
+int launch_res_reduce(const void* g, const void* x, const void* r, const void* const* consts,
+                      int M, int C, int rows_per_cta, int ctas, void* partial, void* out,
+                      void* dres, cudaStream_t s) {
+  static bool done[64] = {};
+  const auto kernel = bn_res_reduce_kernel<T>;
+  const bool ring = ring_fits<T>(C, {g, x, r, dres});
+  if (ring) {
+    const cudaError_t err = prepare(kernel, ReduceRing::SMEM, done);
+    if (err != cudaSuccess) return (int)err;
+  }
+  float* dst = static_cast<float*>(ctas == 1 ? out : partial);
+  kernel<<<ctas, RES_THREADS + 32, ring ? ReduceRing::SMEM : 0, s>>>(
+      static_cast<const T*>(g), static_cast<const T*>(x), static_cast<const T*>(r),
+      static_cast<const float*>(consts[0]), static_cast<const float*>(consts[1]),
+      static_cast<const float*>(consts[2]), static_cast<const float*>(consts[3]), M, C,
+      rows_per_cta, ring ? 1 : 0, static_cast<T*>(dres), dst);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || ctas == 1) return (int)err;
+  bn_sum_ctas_kernel<<<(2 * C + 31) / 32, dim3(32, SUM_LANES), 0, s>>>(
+      dst, ctas, 2 * C, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_res_dx(const void* dres, const void* x, const void* const* consts, int M, int C,
+                  int rows_per_cta, int ctas, void* dx, cudaStream_t s) {
+  static bool done[64] = {};
+  const auto kernel = bn_res_dx_kernel<T>;
+  const bool ring = ring_fits<T>(C, {dres, x, dx});
+  if (ring) {
+    const cudaError_t err = prepare(kernel, DxRing::SMEM, done);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<ctas, RES_THREADS + 32, ring ? DxRing::SMEM : 0, s>>>(
+      static_cast<const T*>(dres), static_cast<const T*>(x),
+      static_cast<const float*>(consts[0]), static_cast<const float*>(consts[1]),
+      static_cast<const float*>(consts[2]), static_cast<const float*>(consts[3]),
+      static_cast<const float*>(consts[4]), M, C, rows_per_cta, ring ? 1 : 0,
+      static_cast<T*>(dx));
+  return (int)cudaGetLastError();
+}
+
+// a persistent grid of `ctas` contiguous row shares covering the M rows
+bool bad_persistent_grid(int M, int C, int rows_per_cta, int ctas) {
+  return M <= 0 || C <= 0 || rows_per_cta <= 0 || ctas <= 0 ||
+         (long long)rows_per_cta * ctas < M || (long long)rows_per_cta * (ctas - 1) >= M;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Every entry point returns a cudaError_t (0 on success). g, x and r are
-// device pointers to row-major (M, C) planes of one dtype (0: float32,
-// 1: bf16); r is null without a residual. The per-channel constants are
-// contiguous float32 (C,) vectors. Block row y walks rows
-// [y * rows_per_block, (y + 1) * rows_per_block) of the M, and blocks_y
-// blocks cover the M rows exactly.
+// Every entry point returns a cudaError_t (0 on success). g, x, r, dres and
+// dx are device pointers to row-major (M, C) planes of one dtype (0:
+// float32, 1: bf16). The per-channel constants are contiguous float32 (C,)
+// vectors. For #5, #6 and #9, block row y walks rows [y * rows_per_block,
+// (y + 1) * rows_per_block) of the M, and blocks_y blocks cover the M rows
+// exactly; for #7 and #8, CTA i walks rows [i * rows_per_cta, (i + 1) *
+// rows_per_cta), and ctas CTAs cover them exactly. partial holds
+// blocks_y (ctas) * 2 * C floats (unused when that count is 1); out is
+// (2, C): [sum dy; sum dy*xhat].
 
-// Replaces _masked_reduce_kernel (bn_epilogue.py:54-85, called at :134) and,
-// with r, _dual_reduce_res_kernel (:246-271, called at :325). Bound by
-// memory: 4 (6 with r) bytes per bf16 element. partial holds blocks_y * 2 * C
-// floats (unused when blocks_y == 1); out is (2, C): [sum dy; sum dy*xhat].
-int masked_dual_reduce(const void* g, const void* x, const void* r, const void* A,
-                       const void* B, const void* C_, const void* D, int M, int C,
-                       int dtype, int rows_per_block, int blocks_y, void* partial,
-                       void* out, void* stream) {
+// Kernel #5. Replaces _masked_reduce_kernel (bn_epilogue.py:54-85, called
+// at :134). Bound by memory: 4 bytes per bf16 element.
+int masked_dual_reduce(const void* g, const void* x, const void* A, const void* B,
+                       const void* C_, const void* D, int M, int C, int dtype,
+                       int rows_per_block, int blocks_y, void* partial, void* out,
+                       void* stream) {
   if (bad_grid(M, C, rows_per_block, blocks_y) || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   const void* consts[4] = {A, B, C_, D};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return r ? launch_reduce<__nv_bfloat16, true>(g, x, r, consts, M, C, rows_per_block,
-                                                  blocks_y, partial, out, s)
-             : launch_reduce<__nv_bfloat16, false>(g, x, r, consts, M, C, rows_per_block,
-                                                   blocks_y, partial, out, s);
-  return r ? launch_reduce<float, true>(g, x, r, consts, M, C, rows_per_block, blocks_y,
-                                        partial, out, s)
-           : launch_reduce<float, false>(g, x, r, consts, M, C, rows_per_block, blocks_y,
-                                         partial, out, s);
+    return launch_reduce<__nv_bfloat16>(g, x, consts, M, C, rows_per_block, blocks_y, partial,
+                                        out, s);
+  return launch_reduce<float>(g, x, consts, M, C, rows_per_block, blocks_y, partial, out, s);
 }
 
-// Replaces _dx_kernel (bn_epilogue.py:93-101, called at :170) and, with r,
-// _dx_res_kernel (:274-284, called at :342), which also writes dres = dy.
-// Bound by memory: 6 (10 with r) bytes per bf16 element. dx (and dres) are
-// (M, C) planes of the inputs' dtype; dres is null without r.
-int masked_dx(const void* g, const void* x, const void* r, const void* A, const void* B,
-              const void* C_, const void* D, const void* P, const void* k1,
-              const void* k2, int M, int C, int dtype, int rows_per_block, int blocks_y,
-              void* dx, void* dres, void* stream) {
-  if (bad_grid(M, C, rows_per_block, blocks_y) || dtype < 0 || dtype > 1 ||
-      (r == nullptr) != (dres == nullptr))
+// Kernel #6. Replaces _dx_kernel (bn_epilogue.py:93-101, called at :170).
+// Bound by memory: 6 bytes per bf16 element.
+int masked_dx(const void* g, const void* x, const void* A, const void* B, const void* C_,
+              const void* D, const void* P, const void* k1, const void* k2, int M, int C,
+              int dtype, int rows_per_block, int blocks_y, void* dx, void* stream) {
+  if (bad_grid(M, C, rows_per_block, blocks_y) || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   const void* consts[7] = {A, B, C_, D, P, k1, k2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return r ? launch_dx<__nv_bfloat16, true>(g, x, r, consts, M, C, rows_per_block,
-                                              blocks_y, dx, dres, s)
-             : launch_dx<__nv_bfloat16, false>(g, x, r, consts, M, C, rows_per_block,
-                                               blocks_y, dx, dres, s);
-  return r ? launch_dx<float, true>(g, x, r, consts, M, C, rows_per_block, blocks_y, dx,
-                                    dres, s)
-           : launch_dx<float, false>(g, x, r, consts, M, C, rows_per_block, blocks_y, dx,
-                                     dres, s);
+    return launch_dx<__nv_bfloat16>(g, x, consts, M, C, rows_per_block, blocks_y, dx, s);
+  return launch_dx<float>(g, x, consts, M, C, rows_per_block, blocks_y, dx, s);
 }
 
-// Replaces _dual_reduce_kernel (fused_bn.py:163-180, called at :203), the
-// two reduces of the plain BatchNorm backward. Bound by memory: 4 bytes per
-// bf16 element. g and x as above; mu and inv are the (C,) batch mean and
-// 1/sqrt(var + eps); partial and out as for masked_dual_reduce.
+// Kernel #7. Replaces _dual_reduce_res_kernel (bn_epilogue.py:246-271,
+// called at :325) and writes dres = dy, which _dx_res_kernel (:274-284)
+// recomputed. Bound by memory: 8 bytes per bf16 element (g, x, r; dres).
+int masked_dual_reduce_res(const void* g, const void* x, const void* r, const void* A,
+                           const void* B, const void* C_, const void* D, int M, int C,
+                           int dtype, int rows_per_cta, int ctas, void* partial, void* out,
+                           void* dres, void* stream) {
+  if (bad_persistent_grid(M, C, rows_per_cta, ctas) || dtype < 0 || dtype > 1 || !g || !x ||
+      !r || !dres)
+    return (int)cudaErrorInvalidValue;
+  const void* consts[4] = {A, B, C_, D};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_res_reduce<__nv_bfloat16>(g, x, r, consts, M, C, rows_per_cta, ctas,
+                                            partial, out, dres, s);
+  return launch_res_reduce<float>(g, x, r, consts, M, C, rows_per_cta, ctas, partial, out,
+                                  dres, s);
+}
+
+// Kernel #8. Replaces _dx_res_kernel (bn_epilogue.py:274-284, called at
+// :342), less the dres that #7 wrote: dx from dres and x alone. Bound by
+// memory: 6 bytes per bf16 element (dres, x; dx).
+int masked_dx_res(const void* dres, const void* x, const void* C_, const void* D,
+                  const void* P, const void* k1, const void* k2, int M, int C, int dtype,
+                  int rows_per_cta, int ctas, void* dx, void* stream) {
+  if (bad_persistent_grid(M, C, rows_per_cta, ctas) || dtype < 0 || dtype > 1 || !dres ||
+      !x || !dx)
+    return (int)cudaErrorInvalidValue;
+  const void* consts[5] = {C_, D, P, k1, k2};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_res_dx<__nv_bfloat16>(dres, x, consts, M, C, rows_per_cta, ctas, dx, s);
+  return launch_res_dx<float>(dres, x, consts, M, C, rows_per_cta, ctas, dx, s);
+}
+
+// Kernel #9. Replaces _dual_reduce_kernel (fused_bn.py:163-180, called at
+// :203), the two reduces of the plain BatchNorm backward. Bound by memory:
+// 4 bytes per bf16 element. g and x as above; mu and inv are the (C,) batch
+// mean and 1/sqrt(var + eps); partial and out as for masked_dual_reduce.
 int dual_reduce(const void* g, const void* x, const void* mu, const void* inv, int M, int C,
                 int dtype, int rows_per_block, int blocks_y, void* partial, void* out,
                 void* stream) {

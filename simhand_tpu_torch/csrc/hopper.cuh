@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels of
-// conv1x1.cu and conv_bias.cu: mbarriers, TMA loads and stores, the
-// two-CTA cluster, wgmma with its shared-memory descriptors, and the host's
-// handle on cuTensorMapEncodeTiled.
+// conv1x1.cu and conv_bias.cu and the bulk-copy rings of bn_epilogue.cu:
+// mbarriers, 1-D bulk copies, TMA loads and stores, the two-CTA cluster,
+// wgmma with its shared-memory descriptors, and the host's handle on
+// cuTensorMapEncodeTiled.
 #pragma once
 
 #include <cuda.h>
@@ -37,6 +38,16 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+// `bytes` contiguous bytes from global src into shared dst, counted by the
+// barrier bar; both addresses 16-byte aligned, bytes a multiple of 16
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 // box (c0 + [0, box0), c1 + [0, box1)) of a 2-D tensor map into shared memory
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,

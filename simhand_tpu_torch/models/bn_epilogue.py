@@ -4,19 +4,21 @@ backward (counterpart of ``simhand_tpu/models/bn_epilogue.py``).
 The forward is plain PyTorch: one-pass float32 statistics
 (``var = E[x^2] - mu^2``), the per-channel affine ``y = A x + B`` with A and
 B rounded to the compute dtype, then ReLU. The backward never holds the
-ReLU mask: the four kernels recompute it in float32 from the saved ``x``
-(``A x + B (+ r) > 0``, with A and B in float32, so near 0 it may disagree
-with the forward's bf16 output: that is the reference's semantics) and
-compute, per channel c over the M = N*H*W rows,
+ReLU mask from the forward: the reduces recompute it in float32 from the
+saved ``x`` (``A x + B (+ r) > 0``, with A and B in float32, so near 0 it
+may disagree with the forward's bf16 output: that is the reference's
+semantics). Per channel c over the M = N*H*W rows, the four kernels compute
 
   masked_dual_reduce      sum(dy), sum(dy * xhat)         dy = g * mask
   masked_dx               dx = P (dy - k1 - xhat k2)      xhat = C x + D
-  masked_dual_reduce_res  the same with y = A x + B + r
-  masked_dx_res           the same, and dres = dy
+  masked_dual_reduce_res  the same sums with y = A x + B + r, and dres = dy
+  masked_dx_res           dx from dres and x
 
 with A = scale*inv, B = bias - mu*A, C = inv, D = -mu*inv, P = scale*inv,
 k1 = sum(dy)/M and k2 = sum(dy*xhat)/M; dscale = sum(dy*xhat) and dbias =
-sum(dy) in float32.
+sum(dy) in float32. The residual pair moves 7 (M, C) planes: the reduce
+reads g, x and r and writes dres (dy is g or 0, so dres holds it exactly);
+the dx pass reads dres and x and writes dx. All four are bound by memory.
 
 Each wrapper takes its plain version's tensors with the channel on dim 1:
 (M, C) planes or NCHW activations with channels-last strides, whose memory
@@ -37,14 +39,18 @@ from simhand_tpu_torch import native
 from simhand_tpu_torch.device import on_cpu
 from simhand_tpu_torch.models.layers import BatchNorm2d
 
-_TX = 32          # channels of a block in csrc/bn_epilogue.cu
-_MIN_ROWS = 64    # fewest rows a block walks
+_TX = 32               # channels of a block of #5, #6 and #9 in csrc/bn_epilogue.cu
+_MIN_ROWS = 64         # fewest rows such a block walks
+_CTAS_PER_SM = 2       # the persistent grid of #7 and #8
+_MIN_CTA_BYTES = 16384  # fewest bytes of a plane a CTA of #7 and #8 walks
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "masked_dual_reduce": [_P] * 7 + [_I] * 5 + [_P, _P, _P],
-    "masked_dx": [_P] * 10 + [_I] * 5 + [_P, _P, _P],
+    "masked_dual_reduce": [_P] * 6 + [_I] * 5 + [_P, _P, _P],
+    "masked_dx": [_P] * 9 + [_I] * 5 + [_P, _P],
+    "masked_dual_reduce_res": [_P] * 7 + [_I] * 5 + [_P, _P, _P, _P],
+    "masked_dx_res": [_P] * 7 + [_I] * 5 + [_P, _P],
     # kernel #9 of models/fused_bn.py, in the same source
     "dual_reduce": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
 }
@@ -92,12 +98,11 @@ def masked_dx_plain(g2d, x2d, A, B, C, D, P, k1, k2):
 
 def masked_dual_reduce_res_plain(g2d, x2d, r2d, A, B, C, D):
     dy, xhat = _dy_xhat(g2d, x2d, r2d, A, B, C, D)
-    return dy.sum(0), (dy * xhat).sum(0)
+    return dy.sum(0), (dy * xhat).sum(0), dy.to(r2d.dtype)
 
 
-def masked_dx_res_plain(g2d, x2d, r2d, A, B, C, D, P, k1, k2):
-    dy, xhat = _dy_xhat(g2d, x2d, r2d, A, B, C, D)
-    return _dx(dy, xhat, P, k1, k2, x2d.dtype), dy.to(r2d.dtype)
+def masked_dx_res_plain(dres2d, x2d, C, D, P, k1, k2):
+    return _dx(dres2d.float(), x2d.float() * C + D, P, k1, k2, x2d.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -145,13 +150,26 @@ def _consts(consts, c: int):
     return [t.data_ptr() for t in consts.values()]
 
 
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _rows_per_block(m: int, c: int, device: torch.device) -> int:
-    """Rows a block walks: about eight blocks per SM over the whole plane,
-    each walking at least _MIN_ROWS rows."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks_y = max(1, min(math.ceil(8 * sms / math.ceil(c / _TX)),
+    """Rows a block of #5, #6 or #9 walks: about eight blocks per SM over
+    the whole plane, each walking at least _MIN_ROWS rows."""
+    blocks_y = max(1, min(math.ceil(8 * _sm_count(device) / math.ceil(c / _TX)),
                           math.ceil(m / _MIN_ROWS)))
     return math.ceil(m / blocks_y)
+
+
+def _persistent_grid(m: int, c: int, esize: int, device: torch.device) -> tuple[int, int]:
+    """(rows a CTA walks, CTAs) of #7 and #8: _CTAS_PER_SM per SM, each
+    taking one contiguous share of the rows, at least _MIN_CTA_BYTES of a
+    plane."""
+    ctas = max(1, min(_CTAS_PER_SM * _sm_count(device), m * c * esize // _MIN_CTA_BYTES))
+    rows = math.ceil(m / ctas)
+    return rows, math.ceil(m / rows)
 
 
 def _call(name: str, *args) -> None:
@@ -162,24 +180,17 @@ def _call(name: str, *args) -> None:
             f"{name}: CUDA error {err}: {lib.bn_epilogue_error_string(err).decode()}")
 
 
-def _launch(name: str, g, x, r, consts, make_outputs):
-    """Checks the planes and constants, allocates the outputs with
-    ``make_outputs(x2d, blocks_y)`` (a list of tensors, None for an absent
-    one) and launches ``name`` on the current stream; returns the outputs."""
-    x2d = _plane(x, "x")
-    g2d = _gradient_plane(g, x)
-    r2d = None if r is None else _plane(r, "residual", x)
-    m, c = x2d.shape
+def _launch(name: str, planes, consts, grid, outs) -> None:
+    """Launches ``name`` on the current stream of the planes' device with
+    the pointers of the planes (checked (M, C) planes of one dtype) and the
+    constants, M, C, the dtype, the grid and the outputs' pointers."""
+    m, c = planes[0].shape
     ptrs = _consts(consts, c)
-    rows = _rows_per_block(m, c, x.device)
-    blocks_y = math.ceil(m / rows)
-    outs = make_outputs(x2d, blocks_y)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        _call(name, g2d.data_ptr(), x2d.data_ptr(), 0 if r2d is None else r2d.data_ptr(),
-              *ptrs, m, c, _DTYPES[x.dtype], rows, blocks_y,
-              *[0 if t is None else t.data_ptr() for t in outs], stream)
-    return outs
+    device = planes[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _call(name, *[t.data_ptr() for t in planes], *ptrs, m, c, _DTYPES[planes[0].dtype],
+              *grid, *[t.data_ptr() for t in outs], stream)
 
 
 def _reduce_outputs(x2d, blocks_y):
@@ -190,15 +201,10 @@ def _reduce_outputs(x2d, blocks_y):
     return [out if blocks_y == 1 else out.new_empty((blocks_y, 2, x2d.shape[1])), out]
 
 
-def _launch_reduce(g, x, r, consts):
-    _, out = _launch("masked_dual_reduce", g, x, r, consts, _reduce_outputs)
-    return out[0], out[1]
-
-
-def _launch_dx(g, x, r, consts):
-    dx, dres = _launch("masked_dx", g, x, r, consts, lambda x2d, _: [
-        torch.empty_like(x2d), None if r is None else torch.empty_like(x2d)])
-    return from_rows(dx, x), None if dres is None else from_rows(dres, x)
+def _block_grid(x2d) -> tuple[int, int]:
+    m, c = x2d.shape
+    rows = _rows_per_block(m, c, x2d.device)
+    return rows, math.ceil(m / rows)
 
 
 # --------------------------------------------------------------------------
@@ -209,39 +215,57 @@ def masked_dual_reduce(g, x, A, B, C, D):
     """(sum dy, sum dy*xhat) per channel, float32; dy = g*[A x + B > 0]."""
     if on_cpu(g, x, A, B, C, D):
         return masked_dual_reduce_plain(as_rows(g), as_rows(x), A, B, C, D)
-    out = _launch_reduce(g, x, None, dict(A=A, B=B, C=C, D=D))
+    x2d = _plane(x, "x")
+    grid = _block_grid(x2d)
+    outs = _reduce_outputs(x2d, grid[1])
+    _launch("masked_dual_reduce", [_gradient_plane(g, x), x2d], dict(A=A, B=B, C=C, D=D),
+            grid, outs)
     masked_dual_reduce.launches += 1
-    return out
+    return outs[1][0], outs[1][1]
 
 
 def masked_dx(g, x, A, B, C, D, P, k1, k2):
     """dx = P (dy - k1 - xhat k2) in x's dtype, shape and layout."""
     if on_cpu(g, x, A, B, C, D, P, k1, k2):
         return from_rows(masked_dx_plain(as_rows(g), as_rows(x), A, B, C, D, P, k1, k2), x)
-    dx, _ = _launch_dx(g, x, None, dict(A=A, B=B, C=C, D=D, P=P, k1=k1, k2=k2))
+    x2d = _plane(x, "x")
+    dx = torch.empty_like(x2d)
+    _launch("masked_dx", [_gradient_plane(g, x), x2d],
+            dict(A=A, B=B, C=C, D=D, P=P, k1=k1, k2=k2), _block_grid(x2d), [dx])
     masked_dx.launches += 1
-    return dx
+    return from_rows(dx, x)
 
 
 def masked_dual_reduce_res(g, x, r, A, B, C, D):
-    """masked_dual_reduce with the mask of A x + B + r > 0."""
+    """(sum dy, sum dy*xhat, dres = dy) with the mask of A x + B + r > 0;
+    dres in r's dtype, shape and layout."""
     if on_cpu(g, x, r, A, B, C, D):
-        return masked_dual_reduce_res_plain(as_rows(g), as_rows(x), as_rows(r),
-                                            A, B, C, D)
-    out = _launch_reduce(g, x, r, dict(A=A, B=B, C=C, D=D))
+        sum_dy, sum_dyx, dres = masked_dual_reduce_res_plain(as_rows(g), as_rows(x),
+                                                             as_rows(r), A, B, C, D)
+        return sum_dy, sum_dyx, from_rows(dres, r)
+    x2d = _plane(x, "x")
+    planes = [_gradient_plane(g, x), x2d, _plane(r, "residual", x)]
+    grid = _persistent_grid(*x2d.shape, x2d.element_size(), x2d.device)
+    dres = torch.empty_like(x2d)
+    partial, out = _reduce_outputs(x2d, grid[1])
+    _launch("masked_dual_reduce_res", planes, dict(A=A, B=B, C=C, D=D), grid,
+            [partial, out, dres])
     masked_dual_reduce_res.launches += 1
-    return out
+    return out[0], out[1], from_rows(dres, r)
 
 
-def masked_dx_res(g, x, r, A, B, C, D, P, k1, k2):
-    """(dx, dres = dy) with the mask of A x + B + r > 0."""
-    if on_cpu(g, x, r, A, B, C, D, P, k1, k2):
-        dx, dres = masked_dx_res_plain(as_rows(g), as_rows(x), as_rows(r),
-                                       A, B, C, D, P, k1, k2)
-        return from_rows(dx, x), from_rows(dres, r)
-    out = _launch_dx(g, x, r, dict(A=A, B=B, C=C, D=D, P=P, k1=k1, k2=k2))
+def masked_dx_res(dres, x, C, D, P, k1, k2):
+    """dx = P (dres - k1 - xhat k2) in x's dtype, shape and layout; dres is
+    masked_dual_reduce_res's."""
+    if on_cpu(dres, x, C, D, P, k1, k2):
+        return from_rows(masked_dx_res_plain(as_rows(dres), as_rows(x), C, D, P, k1, k2), x)
+    x2d = _plane(x, "x")
+    dx = torch.empty_like(x2d)
+    _launch("masked_dx_res", [_plane(dres, "dres", x), x2d],
+            dict(C=C, D=D, P=P, k1=k1, k2=k2),
+            _persistent_grid(*x2d.shape, x2d.element_size(), x2d.device), [dx])
     masked_dx_res.launches += 1
-    return out
+    return from_rows(dx, x)
 
 
 KERNELS = (masked_dual_reduce, masked_dx, masked_dual_reduce_res, masked_dx_res)
@@ -342,14 +366,14 @@ class BNAddReluTrain(torch.autograd.Function):
         A, B, C, D = _affine_consts(mu, inv, scale, bias)
         P = scale.float() * inv
         if ctx.impl == "kernel":
-            sum_dy, sum_dyx = masked_dual_reduce_res(g, x, r, A, B, C, D)
-            dx, dres = masked_dx_res(g, x, r, A, B, C, D, P, sum_dy / m, sum_dyx / m)
+            sum_dy, sum_dyx, dres = masked_dual_reduce_res(g, x, r, A, B, C, D)
+            dx = masked_dx_res(dres, x, C, D, P, sum_dy / m, sum_dyx / m)
         else:
-            g2d, x2d, r2d = as_rows(g), as_rows(x), as_rows(r)
-            sum_dy, sum_dyx = masked_dual_reduce_res_plain(g2d, x2d, r2d, A, B, C, D)
-            dx, dres = masked_dx_res_plain(g2d, x2d, r2d, A, B, C, D, P, sum_dy / m,
-                                           sum_dyx / m)
-            dx, dres = from_rows(dx, x), from_rows(dres, r)
+            x2d = as_rows(x)
+            sum_dy, sum_dyx, dres2d = masked_dual_reduce_res_plain(as_rows(g), x2d, as_rows(r),
+                                                                   A, B, C, D)
+            dx = from_rows(masked_dx_res_plain(dres2d, x2d, C, D, P, sum_dy / m, sum_dyx / m), x)
+            dres = from_rows(dres2d, r)
         return dx, dres, sum_dyx.to(scale.dtype), sum_dy.to(bias.dtype), None, None
 
 

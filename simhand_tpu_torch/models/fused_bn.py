@@ -25,8 +25,6 @@ count at each launch and nowhere else.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from simhand_tpu_torch.device import on_cpu
@@ -44,17 +42,10 @@ def bn_backward_reduces_plain(x2d, dy2d, mu, inv):
 
 def _launch(x, dy, mu, inv):
     x2d = E._plane(x, "x")
-    dy2d = E._gradient_plane(dy, x)
-    m, c = x2d.shape
-    ptrs = E._consts(dict(mu=mu, inv=inv), c)
-    rows = E._rows_per_block(m, c, x.device)
-    blocks_y = math.ceil(m / rows)
-    partial, out = E._reduce_outputs(x2d, blocks_y)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        E._call("dual_reduce", dy2d.data_ptr(), x2d.data_ptr(), *ptrs, m, c,
-                E._DTYPES[x.dtype], rows, blocks_y, partial.data_ptr(), out.data_ptr(),
-                stream)
+    grid = E._block_grid(x2d)
+    partial, out = E._reduce_outputs(x2d, grid[1])
+    E._launch("dual_reduce", [E._gradient_plane(dy, x), x2d], dict(mu=mu, inv=inv), grid,
+              [partial, out])
     return out[0], out[1]
 
 

@@ -164,6 +164,56 @@ def test_bn_add_relu_vjp_matches_pallas(dtype):
     assert_sums_close(tdb, dbias)
 
 
+# (..., C): M = 231 (no multiple of 8) with a ragged C of 96, a bottleneck's
+# bn3 width, and layer4's C = 2,048 over a few rows
+RES_SHAPES = [(3, 7, 11, 96), (4, 4, 8, 256), (37, 2048)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", RES_SHAPES, ids=str)
+def test_residual_pair_matches_pallas(shape, dtype):
+    """masked_dual_reduce_res, then masked_dx_res on its dres, against the
+    reference's _bn_add_relu_bwd(impl="pallas") in interpret mode: the sums
+    are (dbias, dscale), dres and dx its two gradients."""
+    rng = np.random.default_rng(4)
+    jdt, tdt = DTYPES[dtype]
+    c = shape[-1]
+    x, r, g = (rng.normal(size=shape).astype(np.float32) for _ in range(3))
+    mu = rng.normal(size=c).astype(np.float32) * 0.1
+    inv = rng.uniform(0.5, 2.0, size=c).astype(np.float32)
+    scale = (rng.normal(size=c) * 0.5 + 1).astype(np.float32)
+    bias = (rng.normal(size=c) * 0.1).astype(np.float32)
+    res = tuple(jnp.asarray(v, jdt) for v in (x, r)) + tuple(
+        jnp.asarray(v) for v in (mu, inv, scale, bias))
+    dx, dres, dscale, dbias = J._bn_add_relu_bwd(EPS, "pallas", res, jnp.asarray(g, jdt))
+
+    tmu, tinv, tscale, tbias = (torch.from_numpy(v) for v in (mu, inv, scale, bias))
+    A, B, C, D = T._affine_consts(tmu, tinv, tscale, tbias)
+    tx, tr, tg = (nchw(v, tdt) for v in (x, r, g))
+    m = tx.numel() // c
+    sum_dy, sum_dyx, tdres = T.masked_dual_reduce_res(tg, tx, tr, A, B, C, D)
+    tdx = T.masked_dx_res(tdres, tx, C, D, tscale * tinv, sum_dy / m, sum_dyx / m)
+    assert tdres.dtype == tdx.dtype == tdt and tdres.shape == tr.shape
+    assert tdres.movedim(1, -1).is_contiguous() and tdx.movedim(1, -1).is_contiguous()
+    assert_sums_close(sum_dy, dbias)
+    assert_sums_close(sum_dyx, dscale)
+    assert_planes_close(nhwc(tdres), dres, dtype)
+    assert_planes_close(nhwc(tdx), dx, dtype)
+
+
+def test_persistent_grid_covers_the_rows(monkeypatch):
+    """#7/#8's grid: contiguous row shares that cover M exactly, at most two
+    CTAs an SM, each walking at least _MIN_CTA_BYTES of a plane."""
+    monkeypatch.setattr(T, "_sm_count", lambda device: 132)
+    for m, c, esize in ((524288, 256, 2), (8192, 2048, 2), (8192, 2048, 4), (231, 96, 2),
+                        (1, 8, 2), (1000, 96, 4)):
+        rows, ctas = T._persistent_grid(m, c, esize, None)
+        assert rows * ctas >= m > rows * (ctas - 1)
+        assert 1 <= ctas <= 264
+        assert ctas == 1 or rows * c * esize >= T._MIN_CTA_BYTES
+    assert T._persistent_grid(524288, 256, 2, None) == (1986, 264)
+
+
 def test_plain_impl_equals_kernel_impl_on_the_cpu():
     """impl="plain" (bn_fused="epilogue_xla") and impl="kernel" run the same
     plain versions on CPU tensors: equal bit for bit, with a gradient in

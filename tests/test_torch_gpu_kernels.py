@@ -120,67 +120,91 @@ def test_kernel_losses_match_the_dense_losses(cuda):
 # the fused BN+ReLU backward kernels (csrc/bn_epilogue.cu)
 # --------------------------------------------------------------------------
 
-def _bn_inputs(gen, shape, dtype):
-    """x, r, g with the channel on dim 1 and channels-last strides, the
-    affine constants of x's statistics, and P."""
+def _bn_inputs(gen, shape, dtype, offset=0):
+    """x, r, g with the channel on dim 1 and channels-last strides, each
+    ``offset`` elements into its storage, the affine constants of x's
+    statistics, and P."""
     from simhand_tpu_torch.models import bn_epilogue as E
 
+    n, c, h, w = shape
+
     def plane():
-        t = torch.randn(shape, device="cuda", generator=gen).to(dtype)
-        return t.contiguous(memory_format=torch.channels_last)
+        t = torch.randn(n * h * w * c + offset, device="cuda", generator=gen).to(dtype)
+        return t[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
 
     x, r, g = plane(), plane(), plane()
-    c = shape[1]
     scale = 1 + 0.5 * torch.randn(c, device="cuda", generator=gen)
     bias = 0.1 * torch.randn(c, device="cuda", generator=gen)
     mu, _, inv = E.batch_stats(x, 1e-5)
     return x, r, g, [*E._affine_consts(mu, inv, scale, bias)], scale * inv
 
 
+# (label, NCHW shape, element offset of the planes): ragged M and C (no
+# multiple of 8 rows, C dividing no 2,048: the per-element walk); widths of
+# the ResNet sites on the ring, one with more rows than its ring has stages;
+# and a layer1 width at a base that no bulk copy takes
+BN_CASES = [("1000x96", (8, 96, 5, 25), 0), ("231x100", (3, 100, 7, 11), 0),
+            ("4000x64", (8, 64, 25, 20), 0), ("126x256", (2, 256, 7, 9), 0),
+            ("18x2048", (3, 2048, 2, 3), 0), ("32768x256", (128, 256, 16, 16), 0),
+            ("offset-126x256", (2, 256, 7, 9), 1)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(8, 96, 5, 25), (3, 100, 7, 11)], ids=["1000x96", "231x100"])
-def test_bn_epilogue_kernels_match_plain_versions(cuda, shape, dtype):
-    """Ragged M and C (no multiple of a block), and a gradient that is not
-    channels-last (the wrapper copies it). Sums to rel 1e-5 of the largest
-    (the same float32 terms added in another order); dx and dres equal bit
-    for bit (the same float32 operations, each rounded, in the same order)."""
+@pytest.mark.parametrize("shape,offset", [c[1:] for c in BN_CASES], ids=[c[0] for c in BN_CASES])
+def test_bn_epilogue_kernels_match_plain_versions(cuda, shape, offset, dtype):
+    """Kernels #5-#8 against their plain versions, with a gradient that is
+    not channels-last (the wrapper copies it). Sums to rel 1e-5 of the
+    largest (the same float32 terms added in another order); dres and dx
+    equal bit for bit (the same float32 operations, each rounded, in the
+    same order); a second launch gives the same bits, sums included."""
     from simhand_tpu_torch.models import bn_epilogue as E
 
-    x, r, g, consts, P = _bn_inputs(cuda, shape, dtype)
+    x, r, g, consts, P = _bn_inputs(cuda, shape, dtype, offset)
     g = g.contiguous()                                    # NCHW, not channels-last
     m = x.numel() // x.shape[1]
     g2d, x2d, r2d = E.as_rows(g), E.as_rows(x), E.as_rows(r)
     E.reset_launches()
-    for res in (False, True):
-        if res:
-            sums = E.masked_dual_reduce_res(g, x, r, *consts)
-            want_sums = E.masked_dual_reduce_res_plain(g2d, x2d, r2d, *consts)
-        else:
-            sums = E.masked_dual_reduce(g, x, *consts)
-            want_sums = E.masked_dual_reduce_plain(g2d, x2d, *consts)
-        for a, b in zip(sums, want_sums):
-            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
-        k = [v / m for v in want_sums]
-        if res:
-            dx, dres = E.masked_dx_res(g, x, r, *consts, P, *k)
-            want_dx, want_dres = E.masked_dx_res_plain(g2d, x2d, r2d, *consts, P, *k)
-            assert torch.equal(E.as_rows(dres), want_dres)
-        else:
-            dx = E.masked_dx(g, x, *consts, P, *k)
-            want_dx = E.masked_dx_plain(g2d, x2d, *consts, P, *k)
-        torch.cuda.synchronize()
-        assert dx.shape == x.shape and dx.dtype == dtype
-        assert dx.is_contiguous(memory_format=torch.channels_last)
-        assert torch.equal(E.as_rows(dx), want_dx)
-    assert [fn.launches for fn in E.KERNELS] == [1, 1, 1, 1]
+
+    sums = E.masked_dual_reduce(g, x, *consts)
+    want_sums = E.masked_dual_reduce_plain(g2d, x2d, *consts)
+    for a, b in zip(sums, want_sums):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    k = [v / m for v in want_sums]
+    dx = E.masked_dx(g, x, *consts, P, *k)
+    torch.cuda.synchronize()
+    assert dx.shape == x.shape and dx.dtype == dtype
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(E.as_rows(dx), E.masked_dx_plain(g2d, x2d, *consts, P, *k))
+
+    *res_sums, dres = E.masked_dual_reduce_res(g, x, r, *consts)
+    *want_sums, want_dres = E.masked_dual_reduce_res_plain(g2d, x2d, r2d, *consts)
+    for a, b in zip(res_sums, want_sums):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    assert dres.shape == r.shape and dres.dtype == dtype
+    assert dres.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(E.as_rows(dres), want_dres)
+    k = [v / m for v in want_sums]
+    dx = E.masked_dx_res(E.from_rows(want_dres, x), x, *consts[2:], P, *k)
+    torch.cuda.synchronize()
+    assert dx.shape == x.shape and dx.dtype == dtype
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(E.as_rows(dx), E.masked_dx_res_plain(want_dres, x2d, *consts[2:], P, *k))
+
+    *again, dres2 = E.masked_dual_reduce_res(g, x, r, *consts)
+    dx2 = E.masked_dx_res(E.from_rows(want_dres, x), x, *consts[2:], P, *k)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(again, res_sums))
+    assert torch.equal(dres2, dres) and torch.equal(dx2, dx)
+    assert [fn.launches for fn in E.KERNELS] == [1, 1, 2, 2]
 
 
 @pytest.mark.gpu
 def test_bn_epilogue_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from simhand_tpu_torch.models import bn_epilogue as E
 
-    x, r, g, consts, _ = _bn_inputs(cuda, (2, 64, 4, 4), torch.bfloat16)
+    x, r, g, consts, P = _bn_inputs(cuda, (2, 64, 4, 4), torch.bfloat16)
+    k = [torch.zeros(64, device="cuda")] * 2
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         E.masked_dual_reduce(g.half(), x.half(), *consts)
     with pytest.raises(ValueError, match="channels-last"):
@@ -191,6 +215,13 @@ def test_bn_epilogue_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         E.masked_dual_reduce(g, x, consts[0].double(), *consts[1:])
     with pytest.raises(ValueError, match="several devices"):
         E.masked_dual_reduce(g, x.cpu(), *consts)
+    _, _, dres = E.masked_dual_reduce_res(g, x, r, *consts)
+    with pytest.raises(ValueError, match="dres"):
+        E.masked_dx_res(dres.float(), x, *consts[2:], P, *k)
+    with pytest.raises(ValueError, match="dres: must be channels-last"):
+        E.masked_dx_res(dres.contiguous(), x, *consts[2:], P, *k)
+    with pytest.raises(ValueError, match="P"):
+        E.masked_dx_res(dres, x, *consts[2:], P[:-1], *k)
 
 
 @pytest.mark.gpu
