@@ -25,9 +25,12 @@
    bn_epilogue.cu) against its plain PyTorch version in bf16 and float32 at
    the ResNet-50 step's stem (2,097,152 x 64), layer1-bn3 (524,288 x 256)
    and layer4-bn3 (8,192 x 2,048) sites and a ragged 1,000 x 96 (#7 on g,
-   x and r, #8 on the plain version's dres): sums within rel 1e-5 of their
-   largest, no mask differences in #7's dres, dx and dres equal bit for
-   bit, a second launch of each equal bit for bit; times each (CUDA
+   x and r, #8 on the plain version's dres; #5 also with a gradient that
+   is not channels-last): sums within rel 1e-5 of their largest, no mask
+   differences in #7's dres, dx and dres equal bit for bit, a second
+   launch of each equal bit for bit, the bulk-copy ring taken by #5, #7
+   and #8 at the three ResNet sites and the per-element walk at the ragged
+   one (the CUDA source's own test, bn_ring_fits); times each (CUDA
    events, torch.profiler, the plain version, its own byte bound) and, at
    the stem (#5+#6) and at layer1-bn3 and layer4-bn3 (#7+#8), the pair's
    bound and the exact route's backward it replaces, by events and by
@@ -37,18 +40,23 @@
    "epilogue_xla"'s bit for bit and the exact route's within rel 5e-4, its
    gradients must agree with epilogue_xla's; five steps with finite losses
    and parameters that change, kernels #5/#6 launched 33 times and #7/#8
-   16 times per step, #2/#4 once; the exact, epilogue and epilogue_xla
-   routes timed in turns, one eval step, a torch.profiler breakdown with
-   #7's and #8's device ms per step beside their bounds over the step's
-   own residual sites;
+   16 times per step, #2/#4 once, every launch of #5, #7 and #8 in step 0
+   on the ring; the exact, epilogue and epilogue_xla routes timed in
+   turns, one eval step, a torch.profiler breakdown with each of #5-#8's
+   device ms and launches per step (sum passes included) beside its bound
+   over the step's own sites, and #5 timed alone at each distinct site;
 6. runs two steps of the plain family (simhand-base), which must launch
    kernels #1 and #3 on every step;
 7. holds kernel #9 (the two reduces of the plain BatchNorm backward,
    csrc/bn_epilogue.cu) against its plain version in bf16 and float32 at the
    sites of phase 4, also with a gradient that is not channels-last (the
-   wrapper copies it): sums within rel 1e-5 of their largest; times it
-   (CUDA events, torch.profiler, the plain version, the byte bound) beside
-   torch.batch_norm_backward_reduce, one PyTorch call of the same function;
+   wrapper copies it): sums within rel 1e-5 of their largest, a second
+   launch equal bit for bit, the ring taken at the three ResNet sites and
+   the walk at the ragged one; times it (CUDA events, torch.profiler, the
+   plain version, the byte bound) beside torch.batch_norm_backward_reduce,
+   one PyTorch call of the same function, by CUDA events and by
+   torch.profiler: in bf16 #9's device time must be below the library's at
+   the stem and layer1-bn3;
 8. holds kernels #10 and #11 (the 1x1 convolution with BatchNorm
    statistics, csrc/conv1x1.cu) against their plain versions (cuBLAS in
    float32, TF32 off) at the six kinds of fused site of the ResNet-50 step,
@@ -64,9 +72,12 @@
    bn_fused=True's bit for bit and the exact route's within rel 5e-3 (the
    reference's affine rounds A and B to bf16 at every site), its
    gradients must agree with bn_fused=True's; five steps with finite losses
-   and parameters that change, kernel #9 launched 53 times per step, #2/#4
-   once; the exact, pallas and bn_fused=True routes timed in turns, one eval
-   step, a torch.profiler breakdown;
+   and parameters that change, kernel #9 launched 53 times per step, each
+   launch of step 0 on the ring, #2/#4 once; the exact, pallas and
+   bn_fused=True routes timed in turns, one eval step, a torch.profiler
+   breakdown with #9's device ms and launches per step (sum passes
+   included) beside its bound over the step's sites, and #9 timed alone at
+   each distinct site;
 10. runs the step with conv1x1_fuse_min_cin=512: its step-0 loss within rel
    5e-4 of the exact route's (its gradients against the exact route's are
    printed: a different bf16 forward, so not held to phase 5's limits); the
@@ -119,6 +130,7 @@ record of the kernels comes before that.
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import dataclasses
 import json
@@ -130,6 +142,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20
 FP32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
 
@@ -492,20 +505,22 @@ def profile_steps(step, state, batch, n: int = PROFILED_STEPS) -> dict:
            "profile_idle_share": 1 - busy / wall,
            "profile_float_add_launches": sum(e.count for e in mixed) // n,
            "profile_float_add_ms": sum(e.self_device_time_total for e in mixed) / n / 1e3}
-    # the port's kernels and their second passes, by source
+    # the port's kernels and their second passes, by source; the BN groups
+    # match disjoint sets of kernels
     for group, names in (("ntxent", ("ntxent_tile_kernel", "sum_splits")),
-                         ("bn_epilogue", ("bn_masked_", "bn_dual_reduce", "bn_sum_partials",
-                                          "bn_res_", "bn_sum_ctas")),
+                         ("bn_epilogue", ("bn_ring_reduce", "bn_masked_dx", "bn_res_",
+                                          "bn_sum_ctas")),
                          *BN_PROFILE_GROUPS.values(),
-                         ("bn_sum_partials", ("bn_sum_partials",)),
+                         *((f"bn_sum_{k}", (f"bn_sum_ctas_kernel<{k}>",))
+                           for k in BN_SUM_PASS.values()),
                          ("conv1x1", ("conv1x1_",)),
                          ("conv1x1_sum", ("conv1x1_sum_partials",)),
                          ("conv_bias", ("conv_bias_kernel",))):
         mine = [e for e in kernels if any(k in e.key for k in names)]
         ms = sum(e.self_device_time_total for e in mine) / n / 1e3
-        print(f"profile: {group} kernels {ms:.4f} ms/step "
-              f"({sum(e.count for e in mine) // n} launches/step)")
-        out[f"profile_{group}_ms"] = ms
+        launches = sum(e.count for e in mine) // n
+        print(f"profile: {group} kernels {ms:.4f} ms/step ({launches} launches/step)")
+        out[f"profile_{group}_ms"], out[f"profile_{group}_launches"] = ms, launches
     return out
 
 
@@ -617,14 +632,107 @@ BN_OPS = {"masked_dual_reduce": 8, "masked_dx": 11,
           "masked_dual_reduce_res": 9, "masked_dx_res": 6}
 BN_PAIRS = {False: ("masked_dual_reduce", "masked_dx"),
             True: ("masked_dual_reduce_res", "masked_dx_res")}
-# each BN kernel's profile group: its kernels, #7's second pass included
-# (#5's, bn_sum_partials, is #9's too and has a group of its own)
+# each BN kernel's profile group, (name, substrings of its kernels' names):
+# #5 and #9 are bn_ring_reduce_kernel<T, MaskedTerms> and <T, CenteredTerms>;
+# a reduce's sum pass is bn_sum_ctas_kernel<n>, one instance per reduce #n,
+# which BN_SUM_PASS names; no kernel falls in two groups
+BN_SUM_PASS = {"masked_dual_reduce": 5, "masked_dual_reduce_res": 7, "bn_backward_reduces": 9}
 BN_PROFILE_GROUPS = {
-    "masked_dual_reduce": ("bn_masked_reduce", ("bn_masked_reduce_kernel",)),
+    "masked_dual_reduce": ("bn_masked_reduce", ("MaskedTerms", "bn_sum_ctas_kernel<5>")),
     "masked_dx": ("bn_masked_dx", ("bn_masked_dx_kernel",)),
-    "masked_dual_reduce_res": ("bn_res_reduce", ("bn_res_reduce_kernel", "bn_sum_ctas")),
+    "masked_dual_reduce_res": ("bn_res_reduce", ("bn_res_reduce_kernel",
+                                                 "bn_sum_ctas_kernel<7>")),
     "masked_dx_res": ("bn_res_dx", ("bn_res_dx_kernel",)),
+    "bn_backward_reduces": ("bn_dual_reduce", ("CenteredTerms", "bn_sum_ctas_kernel<9>")),
 }
+# the C entry points that run the bulk-copy ring: #5, #7, #8 and #9
+RING_KERNELS = ("masked_dual_reduce", "masked_dual_reduce_res", "masked_dx_res", "dual_reduce")
+
+
+class LaunchRecord:
+    """Records every launch through bn_epilogue._launch (#5-#9) until
+    remove(): the C entry point, C, and whether the CUDA source's own test
+    (bn_ring_fits) sends it down the ring with these planes; fails where the
+    Python mirror, ring_fits, answers otherwise. ``gradient_copies`` is for
+    bn_site_bound's backward hooks to count in."""
+
+    def __init__(self):
+        from simhand_tpu_torch.models import bn_epilogue as E
+
+        self.E, self.launch, self.seen, self.gradient_copies = E, E._launch, [], 0
+
+        def launch(name, planes, consts, grid, outs):
+            c, ptrs = planes[0].shape[1], [t.data_ptr() for t in (*planes, *outs)]
+            fits = E.kernel_ring_fits(c, planes[0].dtype, *ptrs)
+            require(fits == E.ring_fits(c, planes[0].element_size(), *ptrs),
+                    f"{name} C={c}: ring_fits disagrees with the CUDA source's bn_ring_fits")
+            self.seen.append((name, c, fits))
+            return self.launch(name, planes, consts, grid, outs)
+
+        E._launch = launch
+
+    def remove(self) -> None:
+        self.E._launch = self.launch
+
+    def ring(self) -> list:
+        """Whether each launch of a ring kernel took the ring, in order."""
+        return [fits for name, _, fits in self.seen if name in RING_KERNELS]
+
+
+def ring_taken(fn) -> bool:
+    """Whether every ring-kernel launch of fn() took the ring."""
+    rec = LaunchRecord()
+    try:
+        fn()
+    finally:
+        rec.remove()
+    require(len(rec.ring()) > 0, "no ring kernel was launched")
+    return all(rec.ring())
+
+
+def sum_passes(sites) -> int:
+    """Sum passes a reduce launches over sites of (M, C, element size):
+    one wherever its persistent grid has more than one CTA."""
+    from simhand_tpu_torch.models import bn_epilogue as E
+
+    return sum(E._persistent_grid(m, c, es, "cuda")[1] > 1 for m, c, es in sites)
+
+
+def site_times(name: str, sites, make, bound_fn, seed: int) -> dict:
+    """One kernel timed alone (torch.profiler, device ms of the kernels of
+    its profile group, sum pass included) at each distinct (M, C, element
+    size) of a step's sites, on random (M, C) planes g and x (``make(g, x)``
+    returns the call that launches it), with the L2 cache overwritten
+    before each launch (a step's planes do not stay there), beside its
+    bound: where its ms per step over its bound comes from."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flush = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device="cuda")
+    group = BN_PROFILE_GROUPS[name][1]
+    rows, total, total_bound = [], 0.0, 0.0
+    for (m, c, es), n in sorted(collections.Counter(sites).items()):
+        dtype = torch.bfloat16 if es == 2 else torch.float32
+        g, x = (torch.randn(m, c, device="cuda", generator=gen).to(dtype) for _ in range(2))
+        call = make(g, x)
+
+        def cold():
+            flush.zero_()
+            call()
+
+        dev = sum(v for k, v in device_ms_by_kernel(cold, 10).items()
+                  if any(p in k for p in group))
+        b = bound_fn(m, c, es)[0]
+        rows.append({"m": m, "c": c, "per_step": n, "device_ms": dev, "bound_ms": b})
+        total, total_bound = total + n * dev, total_bound + n * b
+        print(f"{name} site {m}x{c}: x{n} per step, device {dev:.4f} ms, bound {b:.4f} ms "
+              f"({100 * b / dev:.1f}%), {n * (dev - b):.4f} ms/step over its bound")
+        del g, x
+    print(f"{name} alone at the step's sites (L2 flushed): {total:.4f} ms/step against its "
+          f"bound {total_bound:.4f}")
+    del flush
+    torch.cuda.empty_cache()
+    return {"sites": rows, "ms_per_step": total, "bound_ms_per_step": total_bound}
 
 
 def bn_bound(name: str, m: int, c: int, esize: int) -> tuple[float, str]:
@@ -717,6 +825,16 @@ def bn_kernel_phase(seed: int) -> dict:
                             for a, b in zip(got[:2], want[:2])]
                     row["sums_rel_err"] = max(rels)
                     require(max(rels) <= 1e-5, f"{name} {label} {tag}: sums rel err {rels}")
+                if name == "masked_dual_reduce":
+                    # a gradient that is not channels-last, which the wrapper copies
+                    rels = [float((a - b).abs().max() / b.abs().max())
+                            for a, b in zip(E.masked_dual_reduce(g.contiguous(), x, *cs), want)]
+                    row["sums_rel_err_nchw_g"] = max(rels)
+                    require(max(rels) <= 1e-5, f"{name} {label} {tag} NCHW g: sums rel err {rels}")
+                if name in RING_KERNELS:
+                    row["ring"] = ring_taken(kernel)
+                    require(row["ring"] == (label != "ragged"),
+                            f"{name} {label} {tag}: ring taken {row['ring']}")
                 # dres and dx: the same float32 operations, each rounded, in
                 # the same order: bit for bit in both dtypes (a mask
                 # difference would show here too)
@@ -776,14 +894,18 @@ def step0(state, batch, cfg):
     return float(loss.detach()), torch.autograd.grad(loss, state.params)
 
 
-def bn_site_bound(model, cls=None) -> tuple[list, object]:
+def bn_site_bound(model, cls=None) -> tuple[list, list, LaunchRecord]:
     """Forward hooks on the BNRelu sites (or those of ``cls``) that record
-    each train-mode site's (M, C, element size, residual); returns the list
-    and the hooks' handles."""
+    each train-mode site's (M, C, element size, residual), backward hooks
+    that count the gradients autograd hands them in another layout than
+    channels-last (the wrapper copies those before the launch) into
+    ``record.gradient_copies``, and a record of the BN kernels' launches;
+    returns the list, the handles of all three (the record's last) and the
+    record."""
     from simhand_tpu_torch.models.bn_epilogue import BNRelu
 
     cls = cls or BNRelu
-    sites, handles = [], []
+    sites, handles, record = [], [], LaunchRecord()
 
     def hook(module, args, _out):
         x = args[0]
@@ -791,14 +913,20 @@ def bn_site_bound(model, cls=None) -> tuple[list, object]:
             sites.append((x.numel() // x.shape[1], x.shape[1], x.element_size(),
                           len(args) > 1 and args[1] is not None))
 
+    def backward_hook(module, grad_output):
+        record.gradient_copies += not grad_output[0].movedim(1, -1).is_contiguous()
+
     for mod in model.modules():
         if isinstance(mod, cls):
-            handles.append(mod.register_forward_hook(hook))
-    return sites, handles
+            handles += [mod.register_forward_hook(hook),
+                        mod.register_full_backward_pre_hook(backward_hook)]
+    return sites, [*handles, record], record
 
 
 def epilogue_path(seed: int, exact_state, batch, exact_loss0: float) -> tuple[dict, dict]:
     """The simhand_w step through the fused BN+ReLU encoder."""
+    import torch
+
     from simhand_tpu_torch.losses import ntxent_kernels as K
     from simhand_tpu_torch.models import bn_epilogue as E
     from simhand_tpu_torch.train import make_eval_step, make_train_step
@@ -823,15 +951,20 @@ def epilogue_path(seed: int, exact_state, batch, exact_loss0: float) -> tuple[di
 
     states["exact"] = exact_state
     steps = {k: make_train_step(states[k].model, cfg) for k in ("exact", "epilogue", "epilogue_xla")}
-    sites, handles = bn_site_bound(states["epilogue"].model)
+    sites, handles, record = bn_site_bound(states["epilogue"].model)
     E.reset_launches()
     K.reset_launches()
     states["epilogue"], losses = run_steps(steps["epilogue"], states["epilogue"], batch,
                                            "epilogue", handles)
     ntx = {fn.__name__: fn.launches for fn in K.KERNELS}
     bn = {fn.__name__: fn.launches for fn in E.KERNELS}
-    print(f"epilogue path losses {losses}; launches after {STEPS} steps {bn}, NT-Xent {ntx}")
+    ring = record.ring()
+    print(f"epilogue path losses {losses}; launches after {STEPS} steps {bn}, NT-Xent {ntx}; "
+          f"step 0's {len(ring)} launches of #5, #7 and #8: {sum(ring)} on the ring; "
+          f"{record.gradient_copies} gradients not channels-last")
     require(all(bn[n] == BN_PER_STEP[n] * STEPS for n in bn), f"BN kernel launches {bn}")
+    require(len(ring) == sum(BN_PER_STEP[n] for n in RING_KERNELS if n in BN_PER_STEP)
+            and all(ring), "a launch of #5, #7 or #8 in the epilogue step left the ring")
     require(ntx["weighted_ntxent_denominator"] == STEPS and ntx["weighted_grad_rows"] == STEPS,
             f"NT-Xent kernels #2/#4 did not launch on every epilogue step: {ntx}")
     kernel_bound = {n: sum(bn_bound(n, m, c, es)[0] for m, c, es, res in sites
@@ -858,12 +991,28 @@ def epilogue_path(seed: int, exact_state, batch, exact_loss0: float) -> tuple[di
             "step_ms": mean_ms, "bn_bound_ms_per_step": step_bound, "step_ms_blocks": blocks,
             "bn_kernel_bound_ms_per_step": kernel_bound}
     perf.update(profile_steps(steps["epilogue"], states["epilogue"], batch))
-    for n, (group, _) in BN_PROFILE_GROUPS.items():
-        ms = perf[f"profile_{group}_ms"]
-        if n == "masked_dual_reduce":             # the step runs no #9: the sum pass is #5's
-            ms += perf["profile_bn_sum_partials_ms"]
-        print(f"epilogue step: {n} {ms:.4f} ms/step of device time against its bound "
-              f"{kernel_bound[n]:.4f} ms/step over the step's own sites")
+    for n in BN_REPLACES:
+        group = BN_PROFILE_GROUPS[n][0]
+        ms, got = perf[f"profile_{group}_ms"], perf[f"profile_{group}_launches"]
+        passes = sum_passes([s[:3] for s in sites if n in BN_PAIRS[s[3]]]) if n in BN_SUM_PASS \
+            else 0
+        sums = (f", sum passes {perf[f'profile_bn_sum_{BN_SUM_PASS[n]}_ms']:.4f}"
+                if n in BN_SUM_PASS else "")
+        print(f"epilogue step: {n} {ms:.4f} ms/step of device time ({got} launches/step{sums}) "
+              f"against its bound {kernel_bound[n]:.4f} ms/step over the step's own sites")
+        require(got == BN_PER_STEP[n] + passes,
+                f"epilogue step: {got} launches/step of {n}'s group, not "
+                f"{BN_PER_STEP[n]} + {passes} sum passes")
+
+    def masked_reduce_at(g, x):
+        mu, _, inv = E.batch_stats(x, 1e-5)
+        ones = torch.ones(x.shape[1], device="cuda")
+        cs = E._affine_consts(mu, inv, ones, 0.1 * ones)
+        return lambda: E.masked_dual_reduce(g, x, *cs)
+
+    perf["masked_dual_reduce_sites"] = site_times(
+        "masked_dual_reduce", [s[:3] for s in sites if not s[3]], masked_reduce_at,
+        lambda m, c, es: bn_bound("masked_dual_reduce", m, c, es), seed)
     del states, steps
     return launches, perf
 
@@ -911,22 +1060,31 @@ def fused_bn_kernel_phase(seed: int) -> dict:
 
             want = plain()
             row = {}
-            for layout, got in (("channels_last", kernel()),
-                                ("nchw_dy", F.bn_backward_reduces(x, g.contiguous(), mu, inv))):
+            for layout, dy in (("channels_last", g), ("nchw_dy", g.contiguous())):
+                got, again = (F.bn_backward_reduces(x, dy, mu, inv) for _ in range(2))
                 torch.cuda.synchronize()
                 rels = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want)]
                 require(max(rels) <= 1e-5, f"#9 {label} {tag} {layout}: sums rel err {rels}")
+                require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                        f"#9 {label} {tag} {layout}: a second launch gave other bits")
                 row[f"rel_err_{layout}"] = max(rels)
+            row["second_launch_bit_equal"] = True
+            row["ring"] = ring_taken(kernel)
+            require(row["ring"] == (label != "ragged"), f"#9 {label} {tag}: ring {row['ring']}")
             row["max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(kernel(), want))
             row["library_rel_diff"] = max(float((a - b).abs().max() / b.abs().max())
                                           for a, b in zip(library(), want))
             big = m * c >= 10**8
             row["ms"] = cuda_ms(kernel, 20 if big else 50)
-            if dtype == torch.bfloat16:
-                row["device_ms"] = device_ms(kernel, 10)
+            row["device_ms"] = device_ms(kernel, 10)
             row["plain_ms"] = cuda_ms(plain, 5)
             row["library_ms"] = cuda_ms(library, 20 if big else 50)
+            row["library_device_ms"] = device_ms(library, 10)
             row["bound_ms"], row["bound_by"] = fused_bn_bound(m, c, x.element_size())
+            if dtype == torch.bfloat16 and label in ("stem", "layer1_bn3"):
+                require(row["device_ms"] < row["library_device_ms"],
+                        f"#9 {label} bf16: device {row['device_ms']:.4f} ms, not below "
+                        f"torch.batch_norm_backward_reduce's {row['library_device_ms']:.4f}")
             report[f"{label}_{tag}"] = row
             print(f"fused-bn kernel bn_backward_reduces {label} {tag} ({m}x{c}): " + " ".join(
                 f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()))
@@ -1030,6 +1188,7 @@ def grad_diff(names, got, want):
 def fused_bn_path(seed: int, exact_state, batch, exact_loss0: float) -> tuple[dict, dict]:
     """The simhand_w step with bn_fused="pallas" (kernel #9) and True."""
     from simhand_tpu_torch.losses import ntxent_kernels as K
+    from simhand_tpu_torch.models import bn_epilogue as E
     from simhand_tpu_torch.models import fused_bn as F
     from simhand_tpu_torch.train import make_eval_step, make_train_step
 
@@ -1054,15 +1213,19 @@ def fused_bn_path(seed: int, exact_state, batch, exact_loss0: float) -> tuple[di
 
     states["exact"] = exact_state
     steps = {k: make_train_step(states[k].model, cfg) for k in ("exact", "pallas", "fused_plain")}
-    sites, handles = bn_site_bound(states["pallas"].model, F.FusedBatchNorm)
+    sites, handles, record = bn_site_bound(states["pallas"].model, F.FusedBatchNorm)
     F.reset_launches()
     K.reset_launches()
     states["pallas"], losses = run_steps(steps["pallas"], states["pallas"], batch, "pallas",
                                          handles)
     launches, ntx = F.bn_backward_reduces.launches, {fn.__name__: fn.launches for fn in K.KERNELS}
+    ring = record.ring()
     print(f"fused-bn path losses {losses}; #9 launches after {STEPS} steps {launches}, "
-          f"NT-Xent {ntx}")
+          f"NT-Xent {ntx}; step 0's {len(ring)} launches of #9: {sum(ring)} on the ring; "
+          f"{record.gradient_copies} gradients not channels-last")
     require(len(sites) == FUSED_BN_PER_STEP, f"{len(sites)} FusedBatchNorm sites per step")
+    require(len(ring) == FUSED_BN_PER_STEP and all(ring),
+            "a launch of #9 in the pallas step left the ring")
     require(launches == FUSED_BN_PER_STEP * STEPS, f"#9 launches {launches}")
     require(ntx["weighted_ntxent_denominator"] == STEPS and ntx["weighted_grad_rows"] == STEPS,
             f"NT-Xent kernels #2/#4 did not launch on every pallas step: {ntx}")
@@ -1085,6 +1248,21 @@ def fused_bn_path(seed: int, exact_state, batch, exact_loss0: float) -> tuple[di
             "step0_self_worst_rel": self_worst, "step0_self_all_rel": self_total,
             "step_ms": mean_ms, "bound_ms_per_step": step_bound, "step_ms_blocks": blocks}
     perf.update(profile_steps(steps["pallas"], states["pallas"], batch))
+    ms, got = perf["profile_bn_dual_reduce_ms"], perf["profile_bn_dual_reduce_launches"]
+    passes = sum_passes([s[:3] for s in sites])
+    print(f"pallas step: bn_backward_reduces {ms:.4f} ms/step of device time ({got} "
+          f"launches/step, sum passes {perf['profile_bn_sum_9_ms']:.4f}) against its bound "
+          f"{step_bound:.4f} ms/step over the step's own sites")
+    require(got == FUSED_BN_PER_STEP + passes,
+            f"pallas step: {got} launches/step of #9's group, not {FUSED_BN_PER_STEP} + "
+            f"{passes} sum passes")
+
+    def dual_reduce_at(g, x):
+        mu, _, inv = E.batch_stats(x, 1e-5)
+        return lambda: F.bn_backward_reduces(x, g, mu, inv)
+
+    perf["bn_backward_reduces_sites"] = site_times(
+        "bn_backward_reduces", [s[:3] for s in sites], dual_reduce_at, fused_bn_bound, seed)
     del states, steps
     return {"bn_backward_reduces": launches}, perf
 
@@ -1882,7 +2060,7 @@ def main() -> int:
         "replaces": FUSED_BN_REPLACES["bn_backward_reduces"],
         "launches": fused_bn_launches["bn_backward_reduces"],
         **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")},
+                                    "bound_by", "library_ms", "library_device_ms")},
         "at": fused_bn_report["bn_backward_reduces"],
     })
     for name, shapes in conv_report.items():

@@ -32,41 +32,44 @@
 // least a two-pass design can: #7 reads g, x and r and writes dres (4
 // planes), #8 reads dres and x and writes dx (3). At layer1-bn3 of the
 // ResNet-50 step (524,288 x 256, bf16) that is 0.3205 + 0.2404 ms at
-// 3.35 TB/s.
+// 3.35 TB/s. #5 and #9 read two planes, g and x: 0.1603 ms at the stem
+// (2,097,152 x 64, bf16).
 //
-// #5, #6 and #9: a block of 32 x 8 threads owns 32 channels (one per thread
-// along x, so a warp reads 32 neighbouring elements of a row) and a range of
-// rows, which its 8 row lanes walk with a stride of 8. Each thread loads its
-// channel's constants once and keeps its sums in registers. A reduce writes
-// one partial per row range; a second kernel adds the partials of each
-// channel in a fixed order, so the sums are deterministic (no atomics).
-// Rows and channels are masked at the edges, so any M and C work.
+// #6 (to be redesigned next): a block of 32 x 8 threads owns 32 channels
+// (one per thread along x, so a warp reads 32 neighbouring elements of a
+// row) and a range of rows, which its 8 row lanes walk with a stride of 8;
+// rows and channels are masked at the edges, so any M and C work.
 //
-// #7 and #8, redesigned for Hopper:
+// #5, #7, #8 and #9, designed for Hopper:
 // - A persistent grid (two CTAs an SM, from the wrapper) in which each CTA
 //   takes one contiguous share of the rows: its bytes of every plane are one
 //   span, read once, front to back.
 // - A ring of stages in shared memory (8 KB of each plane a stage; 4 stages
-//   for #7's three planes, 6 for #8's two) filled by 1-D bulk copies
-//   (cp.async.bulk, no tensor map, so the host encodes nothing). A ninth
-//   warp produces: one thread waits for a free stage, posts its bytes on
-//   the stage's full barrier and issues one copy a plane. Up to 192 KB an SM
-//   is in flight.
+//   for #7's three planes, 6 for the two planes of #5, #8 and #9) filled by
+//   1-D bulk copies (cp.async.bulk, no tensor map, so the host encodes
+//   nothing). A ninth warp produces: one thread waits for a free stage,
+//   posts its bytes on the stage's full barrier and issues one copy a plane.
+//   Up to 192 KB an SM is in flight.
 // - 256 consumer threads; each owns 8 consecutive channels (one 16-byte
 //   vector of bf16, two of float32) at a fixed offset of every row, since C
 //   divides 2,048 (every ResNet site, 64-2,048), and so keeps its channels'
-//   constants and, in #7, its 16 running sums in registers. A warp reads a
-//   stage's rows as 512 contiguous bytes and writes dres or dx with 16-byte
-//   stores: whole 128-byte lines. Stores need no wait, so the ring's next
-//   loads overlap them.
-// - #7 adds the sums of the threads that share channels through shared
-//   memory, row lane after row lane, writes one partial per CTA, and a
-//   second kernel adds the CTAs' partials in their order (sixteen row lanes
-//   of CTAs, then the lanes in order). A last-CTA ticket would leave one CTA
-//   reading every partial: 264 x 2C floats, 4.3 MB at layer4 (C = 2,048).
-// - Any other shape or address (C not dividing 2,048, a base pointer that
-//   is not 16-byte aligned) takes a plain per-element walk of the same CTA's
-//   rows inside the same kernels: thread t owns channels t, t + 256, ...
+//   constants and, in the reduces, its 16 running sums in registers. A warp
+//   reads a stage's rows as 512 contiguous bytes and writes dres or dx with
+//   16-byte stores: whole 128-byte lines. Stores need no wait, so the ring's
+//   next loads overlap them.
+// - One reduce kernel serves #5 and #9, templated on its per-element terms
+//   (MaskedTerms, CenteredTerms); #7 is its three-plane sibling with dres.
+//   A reduce adds the sums of the threads that share channels through
+//   shared memory, row lane after row lane, writes one partial per CTA, and
+//   a second kernel (bn_sum_ctas_kernel<n>, one instance per reduce #n)
+//   adds the CTAs' partials in their order (sixteen row lanes of CTAs, then
+//   the lanes in order): a second launch gives the same bits, and no
+//   atomics are used. A last-CTA ticket would leave one CTA reading every
+//   partial: 264 x 2C floats, 4.3 MB at layer4 (C = 2,048).
+// - Any other shape or address (C not dividing 2,048, a row wider than a
+//   stage, a base pointer that is not 16-byte aligned) takes a plain
+//   per-element walk of the same CTA's rows inside the same kernels: thread
+//   t owns channels t, t + 256, ... (bn_ring_fits says which).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,8 +80,8 @@
 
 namespace {
 
-constexpr int TX = 32;   // channels of a block, one per thread
-constexpr int TY = 8;    // row lanes of a block
+constexpr int TX = 32;   // channels of a block of #6, one per thread
+constexpr int TY = 8;    // row lanes of a block of #6
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -98,77 +101,6 @@ __device__ __forceinline__ void masked(const T* __restrict__ g, const T* __restr
   const float y = __fadd_rn(__fmul_rn(xv, a), b);
   dy = y > 0.f ? to_f32(g[i]) : 0.f;
   xhat = __fadd_rn(__fmul_rn(xv, c), d);
-}
-
-// The reduce of a block (blockIdx.x, blockIdx.y): channels [32 bx, +32),
-// rows [by * rows_per_block, +rows_per_block); terms(i, dy, xhat) gives the
-// two terms of element i of channel c. Writes the block's two partial sums
-// to dst, which is (gridDim.y, 2, C).
-template <typename Terms>
-__device__ __forceinline__ void reduce_rows(int c, int M, int C, int rows_per_block,
-                                            Terms terms, float* __restrict__ dst) {
-  __shared__ float sums[2][TY][TX];
-  const int row0 = (int)blockIdx.y * rows_per_block;
-  const int row_end = min(M, row0 + rows_per_block);
-  float sdy = 0.f, sdyx = 0.f;
-  if (c < C) {
-#pragma unroll 4
-    for (int row = row0 + (int)threadIdx.y; row < row_end; row += TY) {
-      float dy, xhat;
-      terms((size_t)row * C + c, dy, xhat);
-      sdy = __fadd_rn(sdy, dy);
-      sdyx = __fadd_rn(sdyx, __fmul_rn(dy, xhat));
-    }
-  }
-  sums[0][threadIdx.y][threadIdx.x] = sdy;
-  sums[1][threadIdx.y][threadIdx.x] = sdyx;
-  __syncthreads();
-  if (threadIdx.y < 2 && c < C) {
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < TY; ++k) s = __fadd_rn(s, sums[threadIdx.y][k][threadIdx.x]);
-    dst[((size_t)blockIdx.y * 2 + threadIdx.y) * C + c] = s;
-  }
-}
-
-// kernel #5
-template <typename T>
-__global__ void __launch_bounds__(TX * TY)
-bn_masked_reduce_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                        const float* __restrict__ A, const float* __restrict__ B,
-                        const float* __restrict__ Cc, const float* __restrict__ D, int M, int C,
-                        int rows_per_block, float* __restrict__ dst) {
-  const int c = (int)(blockIdx.x * TX + threadIdx.x);
-  float a = 0.f, b = 0.f, cc = 0.f, d = 0.f;
-  if (c < C) a = A[c], b = B[c], cc = Cc[c], d = D[c];
-  reduce_rows(c, M, C, rows_per_block, [&](size_t i, float& dy, float& xhat) {
-    masked<T>(g, x, i, a, b, cc, d, dy, xhat);
-  }, dst);
-}
-
-// kernel #9: no mask; dy = g, xhat = (x - mu) * inv
-template <typename T>
-__global__ void __launch_bounds__(TX * TY)
-bn_dual_reduce_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                      const float* __restrict__ mu, const float* __restrict__ inv, int M,
-                      int C, int rows_per_block, float* __restrict__ dst) {
-  const int c = (int)(blockIdx.x * TX + threadIdx.x);
-  float m = 0.f, v = 0.f;
-  if (c < C) m = mu[c], v = inv[c];
-  reduce_rows(c, M, C, rows_per_block, [&](size_t i, float& dy, float& xhat) {
-    dy = to_f32(g[i]);
-    xhat = __fmul_rn(__fsub_rn(to_f32(x[i]), m), v);
-  }, dst);
-}
-
-// out[i] = sum over row ranges s, in order, of partial[s * count + i]
-__global__ void bn_sum_partials_kernel(const float* __restrict__ partial, int splits,
-                                       int count, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s = __fadd_rn(s, partial[(size_t)k * count + i]);
-  out[i] = s;
 }
 
 // kernel #6
@@ -194,45 +126,6 @@ bn_masked_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
   }
 }
 
-// Runs first(dst), the reduce kernel writing its partials to dst, then, with
-// more than one row range, the fixed-order sum of the partials into out.
-template <typename First>
-int reduce_then_sum(First first, int C, int splits, void* partial, void* out,
-                    cudaStream_t s) {
-  float* dst = static_cast<float*>(splits == 1 ? out : partial);
-  first(dst);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  bn_sum_partials_kernel<<<(2 * C + 255) / 256, 256, 0, s>>>(dst, splits, 2 * C,
-                                                             static_cast<float*>(out));
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_reduce(const void* g, const void* x, const void* const* consts, int M, int C,
-                  int rows_per_block, int splits, void* partial, void* out, cudaStream_t s) {
-  const dim3 grid((C + TX - 1) / TX, splits);
-  return reduce_then_sum([&](float* dst) {
-    bn_masked_reduce_kernel<T><<<grid, dim3(TX, TY), 0, s>>>(
-        static_cast<const T*>(g), static_cast<const T*>(x),
-        static_cast<const float*>(consts[0]), static_cast<const float*>(consts[1]),
-        static_cast<const float*>(consts[2]), static_cast<const float*>(consts[3]), M, C,
-        rows_per_block, dst);
-  }, C, splits, partial, out, s);
-}
-
-template <typename T>
-int launch_dual_reduce(const void* g, const void* x, const void* mu, const void* inv, int M,
-                       int C, int rows_per_block, int splits, void* partial, void* out,
-                       cudaStream_t s) {
-  const dim3 grid((C + TX - 1) / TX, splits);
-  return reduce_then_sum([&](float* dst) {
-    bn_dual_reduce_kernel<T><<<grid, dim3(TX, TY), 0, s>>>(
-        static_cast<const T*>(g), static_cast<const T*>(x), static_cast<const float*>(mu),
-        static_cast<const float*>(inv), M, C, rows_per_block, dst);
-  }, C, splits, partial, out, s);
-}
-
 template <typename T>
 int launch_dx(const void* g, const void* x, const void* const* consts, int M, int C,
               int rows_per_block, int blocks_y, void* dx, cudaStream_t s) {
@@ -252,7 +145,7 @@ bool bad_grid(int M, int C, int rows_per_block, int blocks_y) {
          (long long)rows_per_block * (blocks_y - 1) >= M;
 }
 
-// ---- kernels #7 and #8: the residual pair ------------------------------------
+// ---- kernels #5, #7, #8 and #9: the ring ---------------------------------------
 
 constexpr int RES_THREADS = 256;                 // consumers: 8 warps
 constexpr int RES_WARPS = RES_THREADS / 32;
@@ -266,10 +159,10 @@ struct Ring {
   static constexpr int BYTES = STAGES * PLANES * STAGE_PLANE;
   static constexpr int SMEM = BYTES + 2 * 8 * STAGES;   // the stages, full and empty barriers
 };
-using ReduceRing = Ring<3, 4>;
-using DxRing = Ring<2, 6>;
-static_assert(ReduceRing::BYTES >= 2 * SPAN * 4,
-              "the drained ring holds #7's cross-lane sums");
+using ResRing = Ring<3, 4>;     // #7: g, x, r
+using PairRing = Ring<2, 6>;    // #5 and #9: g, x; #8: dres, x
+static_assert(ResRing::BYTES >= 2 * SPAN * 4 && PairRing::BYTES >= 2 * SPAN * 4,
+              "the drained ring holds the reduces' cross-lane sums");
 
 // 8 consecutive values at p (16-byte aligned) as float32, and back
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
@@ -350,6 +243,121 @@ __device__ __forceinline__ bool ring_rows(uint8_t* smem, const T* const (&src)[P
   return true;
 }
 
+// The consumers' row lanes' sums of each channel, added lane after lane
+// through the drained ring (red[q][lane][c], q = 0 for sum dy, 1 for sum
+// dy * xhat), written as the CTA's (2, C) partial dst.
+__device__ __forceinline__ void lane_sums(uint8_t* smem, int C, int lane, int lanes, int c0,
+                                          const float (&sdy)[8], const float (&sdyx)[8],
+                                          float* __restrict__ dst) {
+  float* red = reinterpret_cast<float*>(smem);
+  named_sync(1, RES_THREADS);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    red[lane * C + c0 + j] = sdy[j];
+    red[SPAN + lane * C + c0 + j] = sdyx[j];
+  }
+  named_sync(1, RES_THREADS);
+  for (int i = (int)threadIdx.x; i < 2 * C; i += RES_THREADS) {
+    const int q = i / C, c = i - q * C;
+    float s = 0.f;
+    for (int l = 0; l < lanes; ++l) s = __fadd_rn(s, red[q * SPAN + l * C + c]);
+    dst[i] = s;
+  }
+}
+
+// The per-channel float32 constants of a reduce, (C,) vectors
+struct Consts {
+  const float* v[4];
+};
+
+// #5's terms: dy = g where A x + B > 0, else 0; xhat = C x + D; k = {A, B, C, D}
+struct MaskedTerms {
+  static constexpr int K = 4;
+  __device__ static __forceinline__ void of(float g, float x, const float* k, float& dy,
+                                            float& xhat) {
+    const float y = __fadd_rn(__fmul_rn(x, k[0]), k[1]);
+    dy = y > 0.f ? g : 0.f;
+    xhat = __fadd_rn(__fmul_rn(x, k[2]), k[3]);
+  }
+};
+
+// #9's terms: no mask; dy = g, xhat = (x - mu) * inv; k = {mu, inv}
+struct CenteredTerms {
+  static constexpr int K = 2;
+  __device__ static __forceinline__ void of(float g, float x, const float* k, float& dy,
+                                            float& xhat) {
+    dy = g;
+    xhat = __fmul_rn(__fsub_rn(x, k[0]), k[1]);
+  }
+};
+
+// Kernels #5 and #9: sum dy and sum dy * xhat of the CTA's rows [blockIdx.x
+// * rows_per_cta, +rows_per_cta) of g and x, Terms giving each element's
+// dy and xhat; writes the CTA's partial, dst = partial + (bx, 2, C).
+template <typename T, typename Terms>
+__global__ void __launch_bounds__(RES_THREADS + 32, 2)
+bn_ring_reduce_kernel(const T* __restrict__ g, const T* __restrict__ x, Consts k, int M, int C,
+                      int rows_per_cta, int use_ring, float* __restrict__ partial) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int K = Terms::K;
+  const int row0 = (int)blockIdx.x * rows_per_cta;
+  const int rows = min(M, row0 + rows_per_cta) - row0;
+  float* __restrict__ dst = partial + (size_t)blockIdx.x * 2 * C;
+
+  if (!use_ring) {
+    // the plain per-element walk of the same rows
+    if (threadIdx.x >= RES_THREADS) return;
+    for (int c = (int)threadIdx.x; c < C; c += RES_THREADS) {
+      float kc[K];
+#pragma unroll
+      for (int q = 0; q < K; ++q) kc[q] = k.v[q][c];
+      float sdy = 0.f, sdyx = 0.f;
+#pragma unroll 4
+      for (int row = row0; row < row0 + rows; ++row) {
+        const size_t i = (size_t)row * C + c;
+        float dy, xhat;
+        Terms::of(to_f32(g[i]), to_f32(x[i]), kc, dy, xhat);
+        sdy = __fadd_rn(sdy, dy);
+        sdyx = __fadd_rn(sdyx, __fmul_rn(dy, xhat));
+      }
+      dst[c] = sdy;
+      dst[C + c] = sdyx;
+    }
+    return;
+  }
+
+  const int groups = C / 8, lanes = RES_THREADS / groups;
+  const int lane = (int)threadIdx.x / groups, c0 = ((int)threadIdx.x % groups) * 8;
+  float kc[8][K], sdy[8], sdyx[8];
+  if (threadIdx.x < RES_THREADS) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int q = 0; q < K; ++q) kc[j][q] = k.v[q][c0 + j];
+      sdy[j] = 0.f, sdyx[j] = 0.f;
+    }
+  }
+  const T* const src[2] = {g, x};
+  const bool consumer = ring_rows<T, 2, PairRing>(
+      smem, src, C, row0, rows, [&](const T* const* st, int, int n) {
+#pragma unroll 2
+        for (int row = lane; row < n; row += lanes) {
+          const int off = row * C + c0;
+          float gv[8], xv[8];
+          load8(st[0] + off, gv);
+          load8(st[1] + off, xv);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float dy, xhat;
+            Terms::of(gv[j], xv[j], kc[j], dy, xhat);
+            sdy[j] = __fadd_rn(sdy[j], dy);
+            sdyx[j] = __fadd_rn(sdyx[j], __fmul_rn(dy, xhat));
+          }
+        }
+      });
+  if (consumer) lane_sums(smem, C, lane, lanes, c0, sdy, sdyx, dst);
+}
+
 // Kernel #7. The CTA's rows are [blockIdx.x * rows_per_cta, +rows_per_cta);
 // it writes their dres and its two partial sums, dst = partial + (bx, 2, C).
 template <typename T>
@@ -398,7 +406,7 @@ bn_res_reduce_kernel(const T* __restrict__ g, const T* __restrict__ x, const T* 
     }
   }
   const T* const src[3] = {g, x, r};
-  const bool consumer = ring_rows<T, 3, ReduceRing>(
+  const bool consumer = ring_rows<T, 3, ResRing>(
       smem, src, C, row0, rows, [&](const T* const* st, int first, int n) {
 #pragma unroll 2
         for (int row = lane; row < n; row += lanes) {
@@ -418,24 +426,7 @@ bn_res_reduce_kernel(const T* __restrict__ g, const T* __restrict__ x, const T* 
           store8(dres + (size_t)(first + row) * C + c0, dy);
         }
       });
-  if (!consumer) return;
-
-  // the row lanes' sums of each channel, added lane after lane, through the
-  // drained ring: red[q][lane][c], q = 0 for sum dy, 1 for sum dy * xhat
-  float* red = reinterpret_cast<float*>(smem);
-  named_sync(1, RES_THREADS);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    red[lane * C + c0 + j] = sdy[j];
-    red[SPAN + lane * C + c0 + j] = sdyx[j];
-  }
-  named_sync(1, RES_THREADS);
-  for (int i = (int)threadIdx.x; i < 2 * C; i += RES_THREADS) {
-    const int q = i / C, c = i - q * C;
-    float s = 0.f;
-    for (int l = 0; l < lanes; ++l) s = __fadd_rn(s, red[q * SPAN + l * C + c]);
-    dst[i] = s;
-  }
+  if (consumer) lane_sums(smem, C, lane, lanes, c0, sdy, sdyx, dst);
 }
 
 // Kernel #8: dx of the CTA's rows from dres and x.
@@ -475,8 +466,8 @@ bn_res_dx_kernel(const T* __restrict__ dres, const T* __restrict__ x,
       k2[j] = K2[c0 + j];
   }
   const T* const src[2] = {dres, x};
-  ring_rows<T, 2, DxRing>(smem, src, C, row0, rows,
-                          [&](const T* const* st, int first, int n) {
+  ring_rows<T, 2, PairRing>(smem, src, C, row0, rows,
+                            [&](const T* const* st, int first, int n) {
 #pragma unroll 2
     for (int row = lane; row < n; row += lanes) {
       const int off = row * C + c0;
@@ -495,10 +486,12 @@ bn_res_dx_kernel(const T* __restrict__ dres, const T* __restrict__ x,
 
 // out[i] = sum over the splits s of partial[s * count + i] in a fixed order:
 // row lane ly of a block adds splits ly, ly + SUM_LANES, ... in order, then
-// lane 0 adds the lanes' sums in order.
+// lane 0 adds the lanes' sums in order. One instance per reduce #N, so that
+// a profile tells the three sum passes apart.
+template <int N>
 __global__ void __launch_bounds__(32 * SUM_LANES)
 bn_sum_ctas_kernel(const float* __restrict__ partial, int splits, int count,
-                     float* __restrict__ out) {
+                   float* __restrict__ out) {
   __shared__ float part[SUM_LANES][32];
   const int i = (int)(blockIdx.x * 32 + threadIdx.x);
   float s = 0.f;
@@ -515,6 +508,17 @@ bn_sum_ctas_kernel(const float* __restrict__ partial, int splits, int count,
     for (int l = 0; l < SUM_LANES; ++l) t = __fadd_rn(t, part[l][threadIdx.x]);
     out[i] = t;
   }
+}
+
+// After a reduce's launch into dst: with more than one CTA, #N's sum pass
+// of the CTAs' partials into out
+template <int N>
+int sum_ctas(float* dst, int ctas, int C, void* out, cudaStream_t s) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || ctas == 1) return (int)err;
+  bn_sum_ctas_kernel<N><<<(2 * C + 31) / 32, dim3(32, SUM_LANES), 0, s>>>(
+      dst, ctas, 2 * C, static_cast<float*>(out));
+  return (int)cudaGetLastError();
 }
 
 // the ring's shapes: 8 channels a thread at a fixed offset of every row,
@@ -542,6 +546,24 @@ cudaError_t prepare(Kernel kernel, int smem, bool (&done)[64]) {
   return err;
 }
 
+// #5 (MaskedTerms) or #9 (CenteredTerms), then its sum pass #N
+template <typename T, typename Terms, int N>
+int launch_ring_reduce(const void* g, const void* x, Consts k, int M, int C, int rows_per_cta,
+                       int ctas, void* partial, void* out, cudaStream_t s) {
+  static bool done[64] = {};
+  const auto kernel = bn_ring_reduce_kernel<T, Terms>;
+  const bool ring = ring_fits<T>(C, {g, x});
+  if (ring) {
+    const cudaError_t err = prepare(kernel, PairRing::SMEM, done);
+    if (err != cudaSuccess) return (int)err;
+  }
+  float* dst = static_cast<float*>(ctas == 1 ? out : partial);
+  kernel<<<ctas, RES_THREADS + 32, ring ? PairRing::SMEM : 0, s>>>(
+      static_cast<const T*>(g), static_cast<const T*>(x), k, M, C, rows_per_cta, ring ? 1 : 0,
+      dst);
+  return sum_ctas<N>(dst, ctas, C, out, s);
+}
+
 template <typename T>
 int launch_res_reduce(const void* g, const void* x, const void* r, const void* const* consts,
                       int M, int C, int rows_per_cta, int ctas, void* partial, void* out,
@@ -550,20 +572,16 @@ int launch_res_reduce(const void* g, const void* x, const void* r, const void* c
   const auto kernel = bn_res_reduce_kernel<T>;
   const bool ring = ring_fits<T>(C, {g, x, r, dres});
   if (ring) {
-    const cudaError_t err = prepare(kernel, ReduceRing::SMEM, done);
+    const cudaError_t err = prepare(kernel, ResRing::SMEM, done);
     if (err != cudaSuccess) return (int)err;
   }
   float* dst = static_cast<float*>(ctas == 1 ? out : partial);
-  kernel<<<ctas, RES_THREADS + 32, ring ? ReduceRing::SMEM : 0, s>>>(
+  kernel<<<ctas, RES_THREADS + 32, ring ? ResRing::SMEM : 0, s>>>(
       static_cast<const T*>(g), static_cast<const T*>(x), static_cast<const T*>(r),
       static_cast<const float*>(consts[0]), static_cast<const float*>(consts[1]),
       static_cast<const float*>(consts[2]), static_cast<const float*>(consts[3]), M, C,
       rows_per_cta, ring ? 1 : 0, static_cast<T*>(dres), dst);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || ctas == 1) return (int)err;
-  bn_sum_ctas_kernel<<<(2 * C + 31) / 32, dim3(32, SUM_LANES), 0, s>>>(
-      dst, ctas, 2 * C, static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  return sum_ctas<7>(dst, ctas, C, out, s);
 }
 
 template <typename T>
@@ -573,10 +591,10 @@ int launch_res_dx(const void* dres, const void* x, const void* const* consts, in
   const auto kernel = bn_res_dx_kernel<T>;
   const bool ring = ring_fits<T>(C, {dres, x, dx});
   if (ring) {
-    const cudaError_t err = prepare(kernel, DxRing::SMEM, done);
+    const cudaError_t err = prepare(kernel, PairRing::SMEM, done);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<ctas, RES_THREADS + 32, ring ? DxRing::SMEM : 0, s>>>(
+  kernel<<<ctas, RES_THREADS + 32, ring ? PairRing::SMEM : 0, s>>>(
       static_cast<const T*>(dres), static_cast<const T*>(x),
       static_cast<const float*>(consts[0]), static_cast<const float*>(consts[1]),
       static_cast<const float*>(consts[2]), static_cast<const float*>(consts[3]),
@@ -598,27 +616,27 @@ extern "C" {
 // Every entry point returns a cudaError_t (0 on success). g, x, r, dres and
 // dx are device pointers to row-major (M, C) planes of one dtype (0:
 // float32, 1: bf16). The per-channel constants are contiguous float32 (C,)
-// vectors. For #5, #6 and #9, block row y walks rows [y * rows_per_block,
-// (y + 1) * rows_per_block) of the M, and blocks_y blocks cover the M rows
-// exactly; for #7 and #8, CTA i walks rows [i * rows_per_cta, (i + 1) *
-// rows_per_cta), and ctas CTAs cover them exactly. partial holds
-// blocks_y (ctas) * 2 * C floats (unused when that count is 1); out is
-// (2, C): [sum dy; sum dy*xhat].
+// vectors. For #6, block row y walks rows [y * rows_per_block, (y + 1) *
+// rows_per_block) of the M, and blocks_y blocks cover the M rows exactly;
+// for #5, #7, #8 and #9, CTA i walks rows [i * rows_per_cta, (i + 1) *
+// rows_per_cta), and ctas CTAs cover them exactly. partial holds ctas * 2 *
+// C floats (unused when ctas is 1); out is (2, C): [sum dy; sum dy*xhat].
 
 // Kernel #5. Replaces _masked_reduce_kernel (bn_epilogue.py:54-85, called
-// at :134). Bound by memory: 4 bytes per bf16 element.
+// at :134). Bound by memory: 4 bytes per bf16 element (g, x).
 int masked_dual_reduce(const void* g, const void* x, const void* A, const void* B,
                        const void* C_, const void* D, int M, int C, int dtype,
-                       int rows_per_block, int blocks_y, void* partial, void* out,
-                       void* stream) {
-  if (bad_grid(M, C, rows_per_block, blocks_y) || dtype < 0 || dtype > 1)
+                       int rows_per_cta, int ctas, void* partial, void* out, void* stream) {
+  if (bad_persistent_grid(M, C, rows_per_cta, ctas) || dtype < 0 || dtype > 1 || !g || !x)
     return (int)cudaErrorInvalidValue;
-  const void* consts[4] = {A, B, C_, D};
+  const Consts k = {{static_cast<const float*>(A), static_cast<const float*>(B),
+                     static_cast<const float*>(C_), static_cast<const float*>(D)}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_reduce<__nv_bfloat16>(g, x, consts, M, C, rows_per_block, blocks_y, partial,
-                                        out, s);
-  return launch_reduce<float>(g, x, consts, M, C, rows_per_block, blocks_y, partial, out, s);
+    return launch_ring_reduce<__nv_bfloat16, MaskedTerms, 5>(g, x, k, M, C, rows_per_cta, ctas,
+                                                             partial, out, s);
+  return launch_ring_reduce<float, MaskedTerms, 5>(g, x, k, M, C, rows_per_cta, ctas, partial,
+                                                   out, s);
 }
 
 // Kernel #6. Replaces _dx_kernel (bn_epilogue.py:93-101, called at :170).
@@ -672,19 +690,31 @@ int masked_dx_res(const void* dres, const void* x, const void* C_, const void* D
 
 // Kernel #9. Replaces _dual_reduce_kernel (fused_bn.py:163-180, called at
 // :203), the two reduces of the plain BatchNorm backward. Bound by memory:
-// 4 bytes per bf16 element. g and x as above; mu and inv are the (C,) batch
-// mean and 1/sqrt(var + eps); partial and out as for masked_dual_reduce.
+// 4 bytes per bf16 element (g, x). g and x as above; mu and inv are the
+// (C,) batch mean and 1/sqrt(var + eps); partial and out as for
+// masked_dual_reduce.
 int dual_reduce(const void* g, const void* x, const void* mu, const void* inv, int M, int C,
-                int dtype, int rows_per_block, int blocks_y, void* partial, void* out,
+                int dtype, int rows_per_cta, int ctas, void* partial, void* out,
                 void* stream) {
-  if (bad_grid(M, C, rows_per_block, blocks_y) || dtype < 0 || dtype > 1)
+  if (bad_persistent_grid(M, C, rows_per_cta, ctas) || dtype < 0 || dtype > 1 || !g || !x)
     return (int)cudaErrorInvalidValue;
+  const Consts k = {{static_cast<const float*>(mu), static_cast<const float*>(inv), nullptr,
+                     nullptr}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_dual_reduce<__nv_bfloat16>(g, x, mu, inv, M, C, rows_per_block, blocks_y,
-                                             partial, out, s);
-  return launch_dual_reduce<float>(g, x, mu, inv, M, C, rows_per_block, blocks_y, partial,
-                                   out, s);
+    return launch_ring_reduce<__nv_bfloat16, CenteredTerms, 9>(g, x, k, M, C, rows_per_cta,
+                                                               ctas, partial, out, s);
+  return launch_ring_reduce<float, CenteredTerms, 9>(g, x, k, M, C, rows_per_cta, ctas,
+                                                     partial, out, s);
+}
+
+// 1 when #5, #7, #8 and #9 take the bulk-copy ring for C channels of the
+// dtype with the n planes at ptrs (their bases), 0 when they take the
+// per-element walk
+int bn_ring_fits(int C, int dtype, const void* const* ptrs, int n) {
+  bool fits = dtype == 1 ? ring_fits<__nv_bfloat16>(C, {}) : ring_fits<float>(C, {});
+  for (int i = 0; i < n; ++i) fits = fits && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
+  return fits ? 1 : 0;
 }
 
 const char* bn_epilogue_error_string(int err) {

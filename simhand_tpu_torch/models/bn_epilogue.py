@@ -39,10 +39,12 @@ from simhand_tpu_torch import native
 from simhand_tpu_torch.device import on_cpu
 from simhand_tpu_torch.models.layers import BatchNorm2d
 
-_TX = 32               # channels of a block of #5, #6 and #9 in csrc/bn_epilogue.cu
+_TX = 32               # channels of a block of #6 in csrc/bn_epilogue.cu
 _MIN_ROWS = 64         # fewest rows such a block walks
-_CTAS_PER_SM = 2       # the persistent grid of #7 and #8
-_MIN_CTA_BYTES = 16384  # fewest bytes of a plane a CTA of #7 and #8 walks
+_CTAS_PER_SM = 2       # the persistent grid of #5, #7, #8 and #9
+_MIN_CTA_BYTES = 16384  # fewest bytes of a plane a CTA of that grid walks
+_RING_SPAN = 2048      # channels of a CTA's row lane on the ring: C divides it
+_STAGE_PLANE = 8192    # bytes of a plane in a stage of the ring
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -65,6 +67,8 @@ def _library() -> ctypes.CDLL:
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.bn_epilogue_error_string.argtypes = [ctypes.c_int]
     lib.bn_epilogue_error_string.restype = ctypes.c_char_p
+    lib.bn_ring_fits.argtypes = [_I, _I, ctypes.POINTER(_P), _I]
+    lib.bn_ring_fits.restype = ctypes.c_int
     return lib
 
 
@@ -156,17 +160,17 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _rows_per_block(m: int, c: int, device: torch.device) -> int:
-    """Rows a block of #5, #6 or #9 walks: about eight blocks per SM over
-    the whole plane, each walking at least _MIN_ROWS rows."""
+    """Rows a block of #6 walks: about eight blocks per SM over the whole
+    plane, each walking at least _MIN_ROWS rows."""
     blocks_y = max(1, min(math.ceil(8 * _sm_count(device) / math.ceil(c / _TX)),
                           math.ceil(m / _MIN_ROWS)))
     return math.ceil(m / blocks_y)
 
 
 def _persistent_grid(m: int, c: int, esize: int, device: torch.device) -> tuple[int, int]:
-    """(rows a CTA walks, CTAs) of #7 and #8: _CTAS_PER_SM per SM, each
-    taking one contiguous share of the rows, at least _MIN_CTA_BYTES of a
-    plane."""
+    """(rows a CTA walks, CTAs) of #5, #7, #8 and #9: _CTAS_PER_SM per SM,
+    each taking one contiguous share of the rows, at least _MIN_CTA_BYTES of
+    a plane."""
     ctas = max(1, min(_CTAS_PER_SM * _sm_count(device), m * c * esize // _MIN_CTA_BYTES))
     rows = math.ceil(m / ctas)
     return rows, math.ceil(m / rows)
@@ -193,12 +197,31 @@ def _launch(name: str, planes, consts, grid, outs) -> None:
               *grid, *[t.data_ptr() for t in outs], stream)
 
 
-def _reduce_outputs(x2d, blocks_y):
-    """[partial, out]: (blocks_y, 2, C) partial sums, freed on return (the
-    caching allocator hands them only to work queued later on this stream,
-    which runs after both passes), and the (2, C) sums."""
-    out = x2d.new_empty((2, x2d.shape[1]), dtype=torch.float32)
-    return [out if blocks_y == 1 else out.new_empty((blocks_y, 2, x2d.shape[1])), out]
+def ring_fits(c: int, esize: int, *ptrs: int) -> bool:
+    """Whether #5, #7, #8 and #9 take the bulk-copy ring for C channels of
+    esize bytes with planes at the base addresses ptrs, or else the
+    per-element walk; mirrors ``bn_ring_fits`` of csrc/bn_epilogue.cu."""
+    return (c % 8 == 0 and _RING_SPAN % c == 0 and c * esize <= _STAGE_PLANE
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def kernel_ring_fits(c: int, dtype: torch.dtype, *ptrs: int) -> bool:
+    """The same question put to the built library (needs nvcc)."""
+    arr = (_P * len(ptrs))(*ptrs)
+    return bool(_library().bn_ring_fits(c, _DTYPES[dtype], arr, len(ptrs)))
+
+
+def _reduce(name: str, planes, consts, *more_outs) -> torch.Tensor:
+    """Launches the reduce ``name`` (#5, #7 or #9) on the persistent grid of
+    planes[1]; returns its (2, C) sums. The (ctas, 2, C) partial sums are
+    freed on return (the caching allocator hands them only to work queued
+    later on this stream, which runs after both passes)."""
+    m, c = planes[1].shape
+    grid = _persistent_grid(m, c, planes[1].element_size(), planes[1].device)
+    out = planes[1].new_empty((2, c), dtype=torch.float32)
+    partial = out if grid[1] == 1 else out.new_empty((grid[1], 2, c))
+    _launch(name, planes, consts, grid, [partial, out, *more_outs])
+    return out
 
 
 def _block_grid(x2d) -> tuple[int, int]:
@@ -216,12 +239,9 @@ def masked_dual_reduce(g, x, A, B, C, D):
     if on_cpu(g, x, A, B, C, D):
         return masked_dual_reduce_plain(as_rows(g), as_rows(x), A, B, C, D)
     x2d = _plane(x, "x")
-    grid = _block_grid(x2d)
-    outs = _reduce_outputs(x2d, grid[1])
-    _launch("masked_dual_reduce", [_gradient_plane(g, x), x2d], dict(A=A, B=B, C=C, D=D),
-            grid, outs)
+    out = _reduce("masked_dual_reduce", [_gradient_plane(g, x), x2d], dict(A=A, B=B, C=C, D=D))
     masked_dual_reduce.launches += 1
-    return outs[1][0], outs[1][1]
+    return out[0], out[1]
 
 
 def masked_dx(g, x, A, B, C, D, P, k1, k2):
@@ -245,11 +265,8 @@ def masked_dual_reduce_res(g, x, r, A, B, C, D):
         return sum_dy, sum_dyx, from_rows(dres, r)
     x2d = _plane(x, "x")
     planes = [_gradient_plane(g, x), x2d, _plane(r, "residual", x)]
-    grid = _persistent_grid(*x2d.shape, x2d.element_size(), x2d.device)
     dres = torch.empty_like(x2d)
-    partial, out = _reduce_outputs(x2d, grid[1])
-    _launch("masked_dual_reduce_res", planes, dict(A=A, B=B, C=C, D=D), grid,
-            [partial, out, dres])
+    out = _reduce("masked_dual_reduce_res", planes, dict(A=A, B=B, C=C, D=D), dres)
     masked_dual_reduce_res.launches += 1
     return out[0], out[1], from_rows(dres, r)
 

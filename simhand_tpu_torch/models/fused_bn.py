@@ -42,10 +42,7 @@ def bn_backward_reduces_plain(x2d, dy2d, mu, inv):
 
 def _launch(x, dy, mu, inv):
     x2d = E._plane(x, "x")
-    grid = E._block_grid(x2d)
-    partial, out = E._reduce_outputs(x2d, grid[1])
-    E._launch("dual_reduce", [E._gradient_plane(dy, x), x2d], dict(mu=mu, inv=inv), grid,
-              [partial, out])
+    out = E._reduce("dual_reduce", [E._gradient_plane(dy, x), x2d], dict(mu=mu, inv=inv))
     return out[0], out[1]
 
 

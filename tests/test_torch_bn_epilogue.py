@@ -201,17 +201,77 @@ def test_residual_pair_matches_pallas(shape, dtype):
     assert_planes_close(nhwc(tdx), dx, dtype)
 
 
+def resnet50_bn_sites(images: int, side: int, downsample: bool = True) -> list:
+    """(M, C) of the 53 BatchNorms of ResNet-50 at images x side x side: the
+    stem, then bn1, bn2, bn3 of each bottleneck (the stride on its 3x3) and,
+    with ``downsample``, the first block's downsample BatchNorm of each
+    layer."""
+    hw = side // 4                               # after the stem's conv and max pool
+    sites = [(images * (side // 2) ** 2, 64)]
+    for layer, (blocks, width) in enumerate(((3, 64), (4, 128), (6, 256), (3, 512))):
+        for block in range(blocks):
+            out = hw // 2 if layer > 0 and block == 0 else hw
+            m_in, m = images * hw * hw, images * out * out
+            sites += [(m_in, width), (m, width), (m, 4 * width)]
+            sites += [(m, 4 * width)] if downsample and block == 0 else []
+            hw = out
+    return sites
+
+
 def test_persistent_grid_covers_the_rows(monkeypatch):
-    """#7/#8's grid: contiguous row shares that cover M exactly, at most two
-    CTAs an SM, each walking at least _MIN_CTA_BYTES of a plane."""
+    """The ring kernels' grid (#5, #7, #8, #9): contiguous row shares that
+    cover M exactly, at most two CTAs an SM, each walking at least
+    _MIN_CTA_BYTES of a plane; at the 53 BatchNorm sites of the step at
+    B = 256 pairs (512 images of 128x128) in both dtypes, and at ragged and
+    one-row shapes."""
     monkeypatch.setattr(T, "_sm_count", lambda device: 132)
-    for m, c, esize in ((524288, 256, 2), (8192, 2048, 2), (8192, 2048, 4), (231, 96, 2),
-                        (1, 8, 2), (1000, 96, 4)):
+    sites = resnet50_bn_sites(512, 128)
+    assert len(sites) == 53
+    for m, c, esize in ([(m, c, e) for m, c in sites for e in (2, 4)]
+                        + [(231, 96, 2), (1, 8, 2), (1, 8, 4), (1000, 96, 4)]):
         rows, ctas = T._persistent_grid(m, c, esize, None)
         assert rows * ctas >= m > rows * (ctas - 1)
         assert 1 <= ctas <= 264
         assert ctas == 1 or rows * c * esize >= T._MIN_CTA_BYTES
     assert T._persistent_grid(524288, 256, 2, None) == (1986, 264)
+    assert T._persistent_grid(2097152, 64, 2, None) == (7944, 264)
+    assert T._persistent_grid(1, 8, 2, None) == (1, 1)
+
+
+@pytest.mark.parametrize("bn_fused", ["epilogue", "pallas"])
+def test_resnet_bn_sites_take_the_ring(bn_fused):
+    """Every BatchNorm site whose backward runs a ring kernel (#5/#7 and
+    their dx passes for "epilogue", #9 for "pallas") passes ring_fits, the
+    mirror of the CUDA source's test: ResNet-50 at two 128x128 images (the
+    projection head's train-mode BatchNorm needs more than one) in bf16, forward hooks recording each site's C, dtype and planes. The
+    ragged 1,000 x 96 and a base one element off do not."""
+    from simhand_tpu_torch.models.fused_bn import FusedBatchNorm
+
+    cls = T.BNRelu if bn_fused == "epilogue" else FusedBatchNorm
+    model = TModel("50", dtype=torch.bfloat16, bn_fused=bn_fused).train()
+    seen = []
+
+    def hook(module, args, _out):
+        x = args[0]
+        planes = [t for t in args if t is not None]
+        seen.append((x.numel() // x.shape[1], x.shape[1], x.dtype,
+                     T.ring_fits(x.shape[1], x.element_size(), *(t.data_ptr() for t in planes))))
+
+    for mod in model.modules():
+        if isinstance(mod, cls):
+            mod.register_forward_hook(hook)
+    x = np.random.default_rng(5).normal(size=(2, 128, 128, 3)).astype(np.float32)
+    with torch.no_grad():
+        model(torch.from_numpy(x))
+    # "epilogue" keeps the downsample BatchNorms exact
+    want = resnet50_bn_sites(2, 128, downsample=bn_fused == "pallas")
+    assert len(seen) == {"epilogue": 49, "pallas": 53}[bn_fused]
+    assert sorted((m, c) for m, c, _, _ in seen) == sorted(want)
+    assert all(dtype == torch.bfloat16 and fits for _, _, dtype, fits in seen)
+    assert T.ring_fits(64, 4, 0, 256) and T.ring_fits(2048, 2, 512)
+    assert not T.ring_fits(96, 2, 0)                    # 1,000 x 96: C divides no 2,048
+    assert not T.ring_fits(256, 2, 0, 2)                # a bf16 base one element off
+    assert not T.ring_fits(256, 4, 4)                   # a float32 base one element off
 
 
 def test_plain_impl_equals_kernel_impl_on_the_cpu():

@@ -157,7 +157,8 @@ def test_bn_epilogue_kernels_match_plain_versions(cuda, shape, offset, dtype):
     not channels-last (the wrapper copies it). Sums to rel 1e-5 of the
     largest (the same float32 terms added in another order); dres and dx
     equal bit for bit (the same float32 operations, each rounded, in the
-    same order); a second launch gives the same bits, sums included."""
+    same order); a second launch of #5, #7 and #8 gives the same bits, sums
+    included."""
     from simhand_tpu_torch.models import bn_epilogue as E
 
     x, r, g, consts, P = _bn_inputs(cuda, shape, dtype, offset)
@@ -170,6 +171,9 @@ def test_bn_epilogue_kernels_match_plain_versions(cuda, shape, offset, dtype):
     want_sums = E.masked_dual_reduce_plain(g2d, x2d, *consts)
     for a, b in zip(sums, want_sums):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    again = E.masked_dual_reduce(g, x, *consts)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(again, sums))
     k = [v / m for v in want_sums]
     dx = E.masked_dx(g, x, *consts, P, *k)
     torch.cuda.synchronize()
@@ -196,7 +200,7 @@ def test_bn_epilogue_kernels_match_plain_versions(cuda, shape, offset, dtype):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(again, res_sums))
     assert torch.equal(dres2, dres) and torch.equal(dx2, dx)
-    assert [fn.launches for fn in E.KERNELS] == [1, 1, 2, 2]
+    assert [fn.launches for fn in E.KERNELS] == [2, 1, 2, 2]
 
 
 @pytest.mark.gpu
@@ -222,6 +226,22 @@ def test_bn_epilogue_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         E.masked_dx_res(dres.contiguous(), x, *consts[2:], P, *k)
     with pytest.raises(ValueError, match="P"):
         E.masked_dx_res(dres, x, *consts[2:], P[:-1], *k)
+
+
+@pytest.mark.gpu
+def test_bn_ring_fits_mirrors_the_source(cuda):
+    """bn_epilogue.ring_fits (what the CPU tests and chip_smoke.py ask)
+    answers as the CUDA source's own test, bn_ring_fits, at every BN_CASES
+    width, both dtypes, aligned and unaligned bases."""
+    from simhand_tpu_torch.models import bn_epilogue as E
+
+    for _, (_, c, _, _), _ in BN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            esize = torch.empty(0, dtype=dtype).element_size()
+            for ptrs in ((), (0, 256), (0, esize), (16, 32 + esize)):
+                assert E.kernel_ring_fits(c, dtype, *ptrs) == E.ring_fits(c, esize, *ptrs)
+    assert E.kernel_ring_fits(256, torch.bfloat16, 0, 512)
+    assert not E.kernel_ring_fits(96, torch.bfloat16, 0, 512)
 
 
 @pytest.mark.gpu
@@ -255,24 +275,28 @@ def test_bnrelu_kernel_backward_matches_plain_backward(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(8, 96, 5, 25), (3, 100, 7, 11)], ids=["1000x96", "231x100"])
-def test_bn_backward_reduces_matches_plain_version(cuda, shape, dtype):
-    """Ragged M and C, and a gradient that is not channels-last (the wrapper
+@pytest.mark.parametrize("shape,offset", [c[1:] for c in BN_CASES], ids=[c[0] for c in BN_CASES])
+def test_bn_backward_reduces_matches_plain_version(cuda, shape, offset, dtype):
+    """Kernel #9 at the shapes of BN_CASES (the ring and the per-element
+    walk), with a channels-last gradient and one that is not (the wrapper
     copies it); sums to rel 1e-5 of the largest (the same float32 terms,
-    each rounded in the plain version's order, added in another order)."""
+    each rounded in the plain version's order, added in another order); a
+    second launch gives the same bits."""
     from simhand_tpu_torch.models import bn_epilogue as E
     from simhand_tpu_torch.models import fused_bn as F
 
-    x, _, g, _, _ = _bn_inputs(cuda, shape, dtype)
+    x, _, g, _, _ = _bn_inputs(cuda, shape, dtype, offset)
     mu, _, inv = E.batch_stats(x, 1e-5)
     want = F.bn_backward_reduces_plain(E.as_rows(x), E.as_rows(g), mu, inv)
     F.reset_launches()
     for dy in (g, g.contiguous()):
         got = F.bn_backward_reduces(x, dy, mu, inv)
+        again = F.bn_backward_reduces(x, dy, mu, inv)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
-    assert F.bn_backward_reduces.launches == 2
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+    assert F.bn_backward_reduces.launches == 4
     with pytest.raises(ValueError, match="channels-last"):
         F.bn_backward_reduces(x.contiguous(), g, mu, inv)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
