@@ -9,9 +9,12 @@
    in float32 (TF32 off) at three shapes: the training step's 512 x 512, a
    512-row shard against 16384 columns, and 16384 x 16384 (8192 pairs, the
    paper's global batch on one card); denominators within rtol 1e-5,
-   gradients within 1e-5 * max|G|; times each with CUDA events over
-   back-to-back calls (host enqueue included) and with torch.profiler
-   (the device time of its kernels alone);
+   gradients within 1e-5 * max|G|; #4 (three-pass TF32 products) also a
+   second launch equal bit for bit, and its earlier CUDA-core design timed
+   beside it; times each with CUDA events over back-to-back calls (host
+   enqueue included) and with torch.profiler (the device time of its
+   kernels alone), beside its bound and the unit that sets it (bytes, the
+   tensor cores' TF32 rate or the CUDA cores' float32 rate);
 3. runs the simhand_w pre-training step as ``bench.py`` builds it
    (ResNet-50, 128x128, bf16, B = 256 pairs, use_pallas=True, LARS) on a
    synthetic batch made on the card from ``--seed``: the step-0 loss and
@@ -28,9 +31,9 @@
    x and r, #8 on the plain version's dres; #5 also with a gradient that
    is not channels-last): sums within rel 1e-5 of their largest, no mask
    differences in #7's dres, dx and dres equal bit for bit, a second
-   launch of each equal bit for bit, the bulk-copy ring taken by #5, #7
-   and #8 at the three ResNet sites and the per-element walk at the ragged
-   one (the CUDA source's own test, bn_ring_fits); times each (CUDA
+   launch of each equal bit for bit, the bulk-copy ring taken by #5-#8 at
+   the three ResNet sites and the per-element walk at the ragged one (the
+   CUDA source's own test, bn_ring_fits); times each (CUDA
    events, torch.profiler, the plain version, its own byte bound) and, at
    the stem (#5+#6) and at layer1-bn3 and layer4-bn3 (#7+#8), the pair's
    bound and the exact route's backward it replaces, by events and by
@@ -40,11 +43,12 @@
    "epilogue_xla"'s bit for bit and the exact route's within rel 5e-4, its
    gradients must agree with epilogue_xla's; five steps with finite losses
    and parameters that change, kernels #5/#6 launched 33 times and #7/#8
-   16 times per step, #2/#4 once, every launch of #5, #7 and #8 in step 0
-   on the ring; the exact, epilogue and epilogue_xla routes timed in
-   turns, one eval step, a torch.profiler breakdown with each of #5-#8's
-   device ms and launches per step (sum passes included) beside its bound
-   over the step's own sites, and #5 timed alone at each distinct site;
+   16 times per step, #2/#4 once, every launch of #5-#8 in step 0 on the
+   ring; the exact, epilogue and epilogue_xla routes timed in turns, one
+   eval step, a torch.profiler breakdown with each of #5-#8's device ms and
+   launches per step (sum passes included; #6 and #8 told apart by their
+   template argument) beside its bound over the step's own sites, and #5
+   and #6 timed alone at each distinct site;
 6. runs two steps of the plain family (simhand-base), which must launch
    kernels #1 and #3 on every step;
 7. holds kernel #9 (the two reduces of the plain BatchNorm backward,
@@ -133,6 +137,7 @@ import argparse
 import collections
 import copy
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -145,6 +150,7 @@ HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20
 FP32_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
+TF32_TENSOR_OPS_PER_S = 495e12
 
 SOURCES = {"ntxent": "simhand_tpu_torch/csrc/ntxent.cu",
            "bn_epilogue": "simhand_tpu_torch/csrc/bn_epilogue.cu",
@@ -337,23 +343,27 @@ def device_ms(fn, iters: int) -> float:
     return sum(device_ms_by_kernel(fn, iters).values())
 
 
-def bound(name: str, m: int, n: int) -> tuple[float, str]:
-    """Least time for the work: bytes (each input read once, each output
-    written once) over the memory rate, or float32 operations over the
-    float32 rate, whichever is larger. Per (row, column) pair: 2*128 for
-    the dot product; exp, divide, mask and sum 3; the weighted kernels 21 *
-    7 for the joint distances (sqrt counted as one operation) and 4 for the
-    weight; the gradients 2*128 more for the second product and 2 for the
-    (1/neg_m + 1/neg_j) factor."""
+def bound(name: str, m: int, n: int) -> tuple[float, str, str]:
+    """Least time for float32-accurate work: the largest of the bytes (each
+    input read once, each output written once) over the memory rate, the
+    products on the tensor cores, three TF32 passes at 495 TFLOP/s (2 * 128
+    flops a pair for a denominator, 4 * 128 for a gradient), and the rest
+    on the CUDA cores at 67 TFLOP/s, per pair: exp, divide, mask and sum 3;
+    the weighted kernels 21 * 7 for the joint distances (sqrt counted as
+    one operation) and 4 for the weight; the gradients 2 for the (1/neg_m +
+    1/neg_j) factor. Returns the ms, "bytes" or "operations", and the unit
+    that bounds it: "bytes", "tensor" or "cuda cores"."""
     d, weighted, grad = 128, "weighted" in name, "grad" in name
-    per_pair = 2 * d + 3 + (21 * 7 + 4 if weighted else 0) + (2 * d + 2 if grad else 0)
-    ops = float(m) * n * per_pair
+    pairs = float(m) * n
+    t_tensor = 3 * pairs * 2 * d * (2 if grad else 1) / TF32_TENSOR_OPS_PER_S
+    t_cuda = pairs * (3 + (21 * 7 + 4 if weighted else 0) + (2 if grad else 0)) / FP32_OPS_PER_S
     nbytes = 4 * ((m + n) * d + m)                          # z_rows, z_cols, row_ids
     nbytes += 4 * ((m + n) * 42 + 2) if weighted else 0     # joints, [d_max, d_min]
     nbytes += 4 * (m + n) if grad else 0                    # 1/neg rows and columns
     nbytes += 4 * m * (d if grad else 1)                    # output
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t, unit = max((t_bytes, "bytes"), (t_tensor, "tensor"), (t_cuda, "cuda cores"))
+    return t * 1e3, ("bytes" if unit == "bytes" else "operations"), unit
 
 
 def kernel_phase(seed: int) -> dict:
@@ -399,13 +409,22 @@ def kernel_phase(seed: int) -> dict:
             ms = cuda_ms(lambda: kernel(*a), iters)
             dev_ms = device_ms(lambda: kernel(*a), iters)
             plain_ms = cuda_ms(lambda: plain(*a), max(iters // 5, 2))
-            bound_ms, bound_by = bound(name, m, n)
-            report[name][label] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-                                   "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                   "bound_by": bound_by}
+            bound_ms, bound_by, unit = bound(name, m, n)
+            row = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "bound_unit": unit,
+                   "bound_share": bound_ms / dev_ms}
+            if name == "weighted_grad_rows":
+                # the column splits' sum has a fixed order
+                again = kernel(*a)
+                torch.cuda.synchronize()
+                row["second_launch_bit_equal"] = bool(torch.equal(got, again))
+                require(row["second_launch_bit_equal"],
+                        f"{name} {label}: a second launch gave other bits")
+                del again
+            report[name][label] = row
             print(f"kernel {name} {label}: max_abs_err={err:.3e} ms={ms:.4f} "
                   f"device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"bound_ms={bound_ms:.4f} ({bound_by})")
+                  f"bound_ms={bound_ms:.5f} ({unit}; {100 * bound_ms / dev_ms:.1f}% of it)")
         del args, z_cols, j_cols, z_rows, j_rows, inv_cols, inv_rows
         torch.cuda.empty_cache()
     return report
@@ -507,8 +526,9 @@ def profile_steps(step, state, batch, n: int = PROFILED_STEPS) -> dict:
            "profile_float_add_ms": sum(e.self_device_time_total for e in mixed) / n / 1e3}
     # the port's kernels and their second passes, by source; the BN groups
     # match disjoint sets of kernels
-    for group, names in (("ntxent", ("ntxent_tile_kernel", "sum_splits")),
-                         ("bn_epilogue", ("bn_ring_reduce", "bn_masked_dx", "bn_res_",
+    for group, names in (("ntxent", ("ntxent_tile_kernel", "weighted_grad_kernel",
+                                     "sum_splits")),
+                         ("bn_epilogue", ("bn_ring_reduce", "bn_ring_dx", "bn_res_",
                                           "bn_sum_ctas")),
                          *BN_PROFILE_GROUPS.values(),
                          *((f"bn_sum_{k}", (f"bn_sum_ctas_kernel<{k}>",))
@@ -582,6 +602,8 @@ def in_turns(steps: dict, states: dict, batch, order) -> tuple[dict, dict]:
 
 def main_path(seed: int):
     """The simhand_w step at B = 256 pairs, as bench.py builds it."""
+    import torch
+
     from simhand_tpu_torch.losses import ntxent_kernels as K
     from simhand_tpu_torch.train import make_eval_step, make_train_step
 
@@ -619,6 +641,14 @@ def main_path(seed: int):
           f"dense route {dense_ms:.2f} ms/step, {PAIRS / dense_ms * 1e3:.1f} img/s (img = one "
           f"pair, as bench.py counts; blocks {blocks})")
     perf.update(profile_steps(steps["kernel"], state, batch))
+    # the loss's kernels a step: #2 and #4 over the 2 * PAIRS rows, each with
+    # its splits' sum pass when its planner splits the columns
+    rows, dev = 2 * PAIRS, torch.device("cuda")
+    want = (2 + (K._splits(rows, rows, dev) > 1)
+            + (K._grad_grid(rows, rows, dev)[0] > 1))
+    require(perf["profile_ntxent_launches"] == want,
+            f"the profile counts {perf['profile_ntxent_launches']} NT-Xent launches a "
+            f"step, not {want} (#2, #4 and their sum passes)")
     return state, batch, launches, perf
 
 
@@ -633,20 +663,22 @@ BN_OPS = {"masked_dual_reduce": 8, "masked_dx": 11,
 BN_PAIRS = {False: ("masked_dual_reduce", "masked_dx"),
             True: ("masked_dual_reduce_res", "masked_dx_res")}
 # each BN kernel's profile group, (name, substrings of its kernels' names):
-# #5 and #9 are bn_ring_reduce_kernel<T, MaskedTerms> and <T, CenteredTerms>;
+# #5 and #9 are bn_ring_reduce_kernel<T, MaskedTerms> and <T, CenteredTerms>,
+# #6 and #8 bn_ring_dx_kernel<T, MaskedDy> and <T, StoredDy>;
 # a reduce's sum pass is bn_sum_ctas_kernel<n>, one instance per reduce #n,
 # which BN_SUM_PASS names; no kernel falls in two groups
 BN_SUM_PASS = {"masked_dual_reduce": 5, "masked_dual_reduce_res": 7, "bn_backward_reduces": 9}
 BN_PROFILE_GROUPS = {
     "masked_dual_reduce": ("bn_masked_reduce", ("MaskedTerms", "bn_sum_ctas_kernel<5>")),
-    "masked_dx": ("bn_masked_dx", ("bn_masked_dx_kernel",)),
+    "masked_dx": ("bn_masked_dx", ("MaskedDy",)),
     "masked_dual_reduce_res": ("bn_res_reduce", ("bn_res_reduce_kernel",
                                                  "bn_sum_ctas_kernel<7>")),
-    "masked_dx_res": ("bn_res_dx", ("bn_res_dx_kernel",)),
+    "masked_dx_res": ("bn_res_dx", ("StoredDy",)),
     "bn_backward_reduces": ("bn_dual_reduce", ("CenteredTerms", "bn_sum_ctas_kernel<9>")),
 }
-# the C entry points that run the bulk-copy ring: #5, #7, #8 and #9
-RING_KERNELS = ("masked_dual_reduce", "masked_dual_reduce_res", "masked_dx_res", "dual_reduce")
+# the C entry points that run the bulk-copy ring: #5-#9
+RING_KERNELS = ("masked_dual_reduce", "masked_dx", "masked_dual_reduce_res", "masked_dx_res",
+                "dual_reduce")
 
 
 class LaunchRecord:
@@ -960,11 +992,11 @@ def epilogue_path(seed: int, exact_state, batch, exact_loss0: float) -> tuple[di
     bn = {fn.__name__: fn.launches for fn in E.KERNELS}
     ring = record.ring()
     print(f"epilogue path losses {losses}; launches after {STEPS} steps {bn}, NT-Xent {ntx}; "
-          f"step 0's {len(ring)} launches of #5, #7 and #8: {sum(ring)} on the ring; "
+          f"step 0's {len(ring)} launches of #5-#8: {sum(ring)} on the ring; "
           f"{record.gradient_copies} gradients not channels-last")
     require(all(bn[n] == BN_PER_STEP[n] * STEPS for n in bn), f"BN kernel launches {bn}")
     require(len(ring) == sum(BN_PER_STEP[n] for n in RING_KERNELS if n in BN_PER_STEP)
-            and all(ring), "a launch of #5, #7 or #8 in the epilogue step left the ring")
+            and all(ring), "a launch of #5-#8 in the epilogue step left the ring")
     require(ntx["weighted_ntxent_denominator"] == STEPS and ntx["weighted_grad_rows"] == STEPS,
             f"NT-Xent kernels #2/#4 did not launch on every epilogue step: {ntx}")
     kernel_bound = {n: sum(bn_bound(n, m, c, es)[0] for m, c, es, res in sites
@@ -1010,9 +1042,17 @@ def epilogue_path(seed: int, exact_state, batch, exact_loss0: float) -> tuple[di
         cs = E._affine_consts(mu, inv, ones, 0.1 * ones)
         return lambda: E.masked_dual_reduce(g, x, *cs)
 
-    perf["masked_dual_reduce_sites"] = site_times(
-        "masked_dual_reduce", [s[:3] for s in sites if not s[3]], masked_reduce_at,
-        lambda m, c, es: bn_bound("masked_dual_reduce", m, c, es), seed)
+    def masked_dx_at(g, x):
+        mu, _, inv = E.batch_stats(x, 1e-5)
+        ones = torch.ones(x.shape[1], device="cuda")
+        cs = E._affine_consts(mu, inv, ones, 0.1 * ones)
+        k = [0.01 * ones, 0.02 * ones]
+        return lambda: E.masked_dx(g, x, *cs, inv, *k)
+
+    plain_sites = [s[:3] for s in sites if not s[3]]
+    for name, make in (("masked_dual_reduce", masked_reduce_at), ("masked_dx", masked_dx_at)):
+        perf[f"{name}_sites"] = site_times(name, plain_sites, make,
+                                           functools.partial(bn_bound, name), seed)
     del states, steps
     return launches, perf
 

@@ -35,30 +35,28 @@
 // 3.35 TB/s. #5 and #9 read two planes, g and x: 0.1603 ms at the stem
 // (2,097,152 x 64, bf16).
 //
-// #6 (to be redesigned next): a block of 32 x 8 threads owns 32 channels
-// (one per thread along x, so a warp reads 32 neighbouring elements of a
-// row) and a range of rows, which its 8 row lanes walk with a stride of 8;
-// rows and channels are masked at the edges, so any M and C work.
-//
-// #5, #7, #8 and #9, designed for Hopper:
+// #5-#9, designed for Hopper:
 // - A persistent grid (two CTAs an SM, from the wrapper) in which each CTA
 //   takes one contiguous share of the rows: its bytes of every plane are one
 //   span, read once, front to back.
 // - A ring of stages in shared memory (8 KB of each plane a stage; 4 stages
-//   for #7's three planes, 6 for the two planes of #5, #8 and #9) filled by
-//   1-D bulk copies (cp.async.bulk, no tensor map, so the host encodes
+//   for #7's three planes, 6 for the two planes of #5, #6, #8 and #9) filled
+//   by 1-D bulk copies (cp.async.bulk, no tensor map, so the host encodes
 //   nothing). A ninth warp produces: one thread waits for a free stage,
 //   posts its bytes on the stage's full barrier and issues one copy a plane.
 //   Up to 192 KB an SM is in flight.
 // - 256 consumer threads; each owns 8 consecutive channels (one 16-byte
 //   vector of bf16, two of float32) at a fixed offset of every row, since C
 //   divides 2,048 (every ResNet site, 64-2,048), and so keeps its channels'
-//   constants and, in the reduces, its 16 running sums in registers. A warp
+//   constants and, in the reduces, its 16 running sums in registers (#6
+//   holds the most: seven constants of 8 channels, 56 registers). A warp
 //   reads a stage's rows as 512 contiguous bytes and writes dres or dx with
 //   16-byte stores: whole 128-byte lines. Stores need no wait, so the ring's
 //   next loads overlap them.
 // - One reduce kernel serves #5 and #9, templated on its per-element terms
 //   (MaskedTerms, CenteredTerms); #7 is its three-plane sibling with dres.
+//   One dx kernel serves #6 and #8, templated on how it gets dy (MaskedDy:
+//   from g under the mask recomputed from x; StoredDy: read back from dres).
 //   A reduce adds the sums of the threads that share channels through
 //   shared memory, row lane after row lane, writes one partial per CTA, and
 //   a second kernel (bn_sum_ctas_kernel<n>, one instance per reduce #n)
@@ -80,9 +78,6 @@
 
 namespace {
 
-constexpr int TX = 32;   // channels of a block of #6, one per thread
-constexpr int TY = 8;    // row lanes of a block of #6
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -92,60 +87,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
-// dy and xhat of element i, in the plain version's order of operations
-template <typename T>
-__device__ __forceinline__ void masked(const T* __restrict__ g, const T* __restrict__ x,
-                                       size_t i, float a, float b, float c, float d, float& dy,
-                                       float& xhat) {
-  const float xv = to_f32(x[i]);
-  const float y = __fadd_rn(__fmul_rn(xv, a), b);
-  dy = y > 0.f ? to_f32(g[i]) : 0.f;
-  xhat = __fadd_rn(__fmul_rn(xv, c), d);
-}
-
-// kernel #6
-template <typename T>
-__global__ void __launch_bounds__(TX * TY)
-bn_masked_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                    const float* __restrict__ A, const float* __restrict__ B,
-                    const float* __restrict__ Cc, const float* __restrict__ D,
-                    const float* __restrict__ P, const float* __restrict__ K1,
-                    const float* __restrict__ K2, int M, int C, int rows_per_block,
-                    T* __restrict__ dx) {
-  const int c = (int)(blockIdx.x * TX + threadIdx.x);
-  if (c >= C) return;
-  const float a = A[c], b = B[c], cc = Cc[c], d = D[c], p = P[c], k1 = K1[c], k2 = K2[c];
-  const int row0 = (int)blockIdx.y * rows_per_block;
-  const int row_end = min(M, row0 + rows_per_block);
-#pragma unroll 4
-  for (int row = row0 + (int)threadIdx.y; row < row_end; row += TY) {
-    const size_t i = (size_t)row * C + c;
-    float dy, xhat;
-    masked<T>(g, x, i, a, b, cc, d, dy, xhat);
-    dx[i] = from_f32<T>(__fmul_rn(p, __fsub_rn(__fsub_rn(dy, k1), __fmul_rn(xhat, k2))));
-  }
-}
-
-template <typename T>
-int launch_dx(const void* g, const void* x, const void* const* consts, int M, int C,
-              int rows_per_block, int blocks_y, void* dx, cudaStream_t s) {
-  const dim3 grid((C + TX - 1) / TX, blocks_y);
-  bn_masked_dx_kernel<T><<<grid, dim3(TX, TY), 0, s>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x),
-      static_cast<const float*>(consts[0]), static_cast<const float*>(consts[1]),
-      static_cast<const float*>(consts[2]), static_cast<const float*>(consts[3]),
-      static_cast<const float*>(consts[4]), static_cast<const float*>(consts[5]),
-      static_cast<const float*>(consts[6]), M, C, rows_per_block, static_cast<T*>(dx));
-  return (int)cudaGetLastError();
-}
-
-bool bad_grid(int M, int C, int rows_per_block, int blocks_y) {
-  return M <= 0 || C <= 0 || rows_per_block <= 0 || blocks_y <= 0 || blocks_y > 65535 ||
-         (long long)rows_per_block * blocks_y < M ||
-         (long long)rows_per_block * (blocks_y - 1) >= M;
-}
-
-// ---- kernels #5, #7, #8 and #9: the ring ---------------------------------------
+// ---- kernels #5-#9: the ring ---------------------------------------
 
 constexpr int RES_THREADS = 256;                 // consumers: 8 warps
 constexpr int RES_WARPS = RES_THREADS / 32;
@@ -160,7 +102,7 @@ struct Ring {
   static constexpr int SMEM = BYTES + 2 * 8 * STAGES;   // the stages, full and empty barriers
 };
 using ResRing = Ring<3, 4>;     // #7: g, x, r
-using PairRing = Ring<2, 6>;    // #5 and #9: g, x; #8: dres, x
+using PairRing = Ring<2, 6>;    // #5 and #9: g, x; #6: g, x; #8: dres, x
 static_assert(ResRing::BYTES >= 2 * SPAN * 4 && PairRing::BYTES >= 2 * SPAN * 4,
               "the drained ring holds the reduces' cross-lane sums");
 
@@ -429,28 +371,56 @@ bn_res_reduce_kernel(const T* __restrict__ g, const T* __restrict__ x, const T* 
   if (consumer) lane_sums(smem, C, lane, lanes, c0, sdy, sdyx, dst);
 }
 
-// Kernel #8: dx of the CTA's rows from dres and x.
-template <typename T>
+// The per-channel float32 constants of a dx kernel, (C,) vectors
+struct DxConsts {
+  const float* v[7];
+};
+
+// #6's dy: g where A x + B > 0, else 0; k = {A, B, C, D, P, k1, k2}
+struct MaskedDy {
+  static constexpr int K = 7, XHAT = 2;   // k[XHAT..] = {C, D, P, k1, k2}
+  __device__ static __forceinline__ float of(float g, float x, const float* k) {
+    return __fadd_rn(__fmul_rn(x, k[0]), k[1]) > 0.f ? g : 0.f;
+  }
+};
+
+// #8's dy: read back from dres, which #7 wrote; k = {C, D, P, k1, k2}
+struct StoredDy {
+  static constexpr int K = 5, XHAT = 0;
+  __device__ static __forceinline__ float of(float dres, float, const float*) { return dres; }
+};
+
+// dx = P (dy - k1 - xhat k2), xhat = C x + D, from the constants k[XHAT..]
+template <typename Dy>
+__device__ __forceinline__ float dx_of(float src, float x, const float* k) {
+  const float* q = k + Dy::XHAT;
+  const float xhat = __fadd_rn(__fmul_rn(x, q[0]), q[1]);
+  return __fmul_rn(q[2], __fsub_rn(__fsub_rn(Dy::of(src, x, k), q[3]), __fmul_rn(xhat, q[4])));
+}
+
+// Kernels #6 and #8: dx of the CTA's rows [blockIdx.x * rows_per_cta,
+// +rows_per_cta) from src (#6: g; #8: dres) and x, Dy giving each element's
+// dy.
+template <typename T, typename Dy>
 __global__ void __launch_bounds__(RES_THREADS + 32, 2)
-bn_res_dx_kernel(const T* __restrict__ dres, const T* __restrict__ x,
-                 const float* __restrict__ Cc, const float* __restrict__ D,
-                 const float* __restrict__ P, const float* __restrict__ K1,
-                 const float* __restrict__ K2, int M, int C, int rows_per_cta, int use_ring,
-                 T* __restrict__ dx) {
+bn_ring_dx_kernel(const T* __restrict__ src, const T* __restrict__ x, DxConsts k, int M, int C,
+                  int rows_per_cta, int use_ring, T* __restrict__ dx) {
   extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int K = Dy::K;
   const int row0 = (int)blockIdx.x * rows_per_cta;
   const int rows = min(M, row0 + rows_per_cta) - row0;
 
   if (!use_ring) {
+    // the plain per-element walk of the same rows
     if (threadIdx.x >= RES_THREADS) return;
     for (int c = (int)threadIdx.x; c < C; c += RES_THREADS) {
-      const float cc = Cc[c], d = D[c], p = P[c], k1 = K1[c], k2 = K2[c];
+      float kc[K];
+#pragma unroll
+      for (int q = 0; q < K; ++q) kc[q] = k.v[q][c];
 #pragma unroll 4
       for (int row = row0; row < row0 + rows; ++row) {
         const size_t i = (size_t)row * C + c;
-        const float xhat = __fadd_rn(__fmul_rn(to_f32(x[i]), cc), d);
-        dx[i] = from_f32<T>(
-            __fmul_rn(p, __fsub_rn(__fsub_rn(to_f32(dres[i]), k1), __fmul_rn(xhat, k2))));
+        dx[i] = from_f32<T>(dx_of<Dy>(to_f32(src[i]), to_f32(x[i]), kc));
       }
     }
     return;
@@ -458,27 +428,24 @@ bn_res_dx_kernel(const T* __restrict__ dres, const T* __restrict__ x,
 
   const int groups = C / 8, lanes = RES_THREADS / groups;
   const int lane = (int)threadIdx.x / groups, c0 = ((int)threadIdx.x % groups) * 8;
-  float cc[8], d[8], p[8], k1[8], k2[8];
+  float kc[8][K];
   if (threadIdx.x < RES_THREADS) {
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      cc[j] = Cc[c0 + j], d[j] = D[c0 + j], p[j] = P[c0 + j], k1[j] = K1[c0 + j],
-      k2[j] = K2[c0 + j];
+#pragma unroll
+      for (int q = 0; q < K; ++q) kc[j][q] = k.v[q][c0 + j];
   }
-  const T* const src[2] = {dres, x};
-  ring_rows<T, 2, PairRing>(smem, src, C, row0, rows,
+  const T* const planes[2] = {src, x};
+  ring_rows<T, 2, PairRing>(smem, planes, C, row0, rows,
                             [&](const T* const* st, int first, int n) {
 #pragma unroll 2
     for (int row = lane; row < n; row += lanes) {
       const int off = row * C + c0;
-      float dy[8], xv[8], out[8];
-      load8(st[0] + off, dy);
+      float sv[8], xv[8], out[8];
+      load8(st[0] + off, sv);
       load8(st[1] + off, xv);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float xhat = __fadd_rn(__fmul_rn(xv[j], cc[j]), d[j]);
-        out[j] = __fmul_rn(p[j], __fsub_rn(__fsub_rn(dy[j], k1[j]), __fmul_rn(xhat, k2[j])));
-      }
+      for (int j = 0; j < 8; ++j) out[j] = dx_of<Dy>(sv[j], xv[j], kc[j]);
       store8(dx + (size_t)(first + row) * C + c0, out);
     }
   });
@@ -584,22 +551,22 @@ int launch_res_reduce(const void* g, const void* x, const void* r, const void* c
   return sum_ctas<7>(dst, ctas, C, out, s);
 }
 
-template <typename T>
-int launch_res_dx(const void* dres, const void* x, const void* const* consts, int M, int C,
-                  int rows_per_cta, int ctas, void* dx, cudaStream_t s) {
+// #6 (MaskedDy, src = g) or #8 (StoredDy, src = dres)
+template <typename T, typename Dy>
+int launch_ring_dx(const void* src, const void* x, const void* const* consts, int M, int C,
+                   int rows_per_cta, int ctas, void* dx, cudaStream_t s) {
   static bool done[64] = {};
-  const auto kernel = bn_res_dx_kernel<T>;
-  const bool ring = ring_fits<T>(C, {dres, x, dx});
+  const auto kernel = bn_ring_dx_kernel<T, Dy>;
+  const bool ring = ring_fits<T>(C, {src, x, dx});
   if (ring) {
     const cudaError_t err = prepare(kernel, PairRing::SMEM, done);
     if (err != cudaSuccess) return (int)err;
   }
+  DxConsts k = {};
+  for (int q = 0; q < Dy::K; ++q) k.v[q] = static_cast<const float*>(consts[q]);
   kernel<<<ctas, RES_THREADS + 32, ring ? PairRing::SMEM : 0, s>>>(
-      static_cast<const T*>(dres), static_cast<const T*>(x),
-      static_cast<const float*>(consts[0]), static_cast<const float*>(consts[1]),
-      static_cast<const float*>(consts[2]), static_cast<const float*>(consts[3]),
-      static_cast<const float*>(consts[4]), M, C, rows_per_cta, ring ? 1 : 0,
-      static_cast<T*>(dx));
+      static_cast<const T*>(src), static_cast<const T*>(x), k, M, C, rows_per_cta,
+      ring ? 1 : 0, static_cast<T*>(dx));
   return (int)cudaGetLastError();
 }
 
@@ -616,10 +583,8 @@ extern "C" {
 // Every entry point returns a cudaError_t (0 on success). g, x, r, dres and
 // dx are device pointers to row-major (M, C) planes of one dtype (0:
 // float32, 1: bf16). The per-channel constants are contiguous float32 (C,)
-// vectors. For #6, block row y walks rows [y * rows_per_block, (y + 1) *
-// rows_per_block) of the M, and blocks_y blocks cover the M rows exactly;
-// for #5, #7, #8 and #9, CTA i walks rows [i * rows_per_cta, (i + 1) *
-// rows_per_cta), and ctas CTAs cover them exactly. partial holds ctas * 2 *
+// vectors. CTA i walks rows [i * rows_per_cta, (i + 1) * rows_per_cta),
+// and ctas CTAs cover the M rows exactly. partial holds ctas * 2 *
 // C floats (unused when ctas is 1); out is (2, C): [sum dy; sum dy*xhat].
 
 // Kernel #5. Replaces _masked_reduce_kernel (bn_epilogue.py:54-85, called
@@ -640,17 +605,19 @@ int masked_dual_reduce(const void* g, const void* x, const void* A, const void* 
 }
 
 // Kernel #6. Replaces _dx_kernel (bn_epilogue.py:93-101, called at :170).
-// Bound by memory: 6 bytes per bf16 element.
+// Bound by memory: 6 bytes per bf16 element (g, x; dx).
 int masked_dx(const void* g, const void* x, const void* A, const void* B, const void* C_,
               const void* D, const void* P, const void* k1, const void* k2, int M, int C,
-              int dtype, int rows_per_block, int blocks_y, void* dx, void* stream) {
-  if (bad_grid(M, C, rows_per_block, blocks_y) || dtype < 0 || dtype > 1)
+              int dtype, int rows_per_cta, int ctas, void* dx, void* stream) {
+  if (bad_persistent_grid(M, C, rows_per_cta, ctas) || dtype < 0 || dtype > 1 || !g || !x ||
+      !dx)
     return (int)cudaErrorInvalidValue;
   const void* consts[7] = {A, B, C_, D, P, k1, k2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_dx<__nv_bfloat16>(g, x, consts, M, C, rows_per_block, blocks_y, dx, s);
-  return launch_dx<float>(g, x, consts, M, C, rows_per_block, blocks_y, dx, s);
+    return launch_ring_dx<__nv_bfloat16, MaskedDy>(g, x, consts, M, C, rows_per_cta, ctas, dx,
+                                                   s);
+  return launch_ring_dx<float, MaskedDy>(g, x, consts, M, C, rows_per_cta, ctas, dx, s);
 }
 
 // Kernel #7. Replaces _dual_reduce_res_kernel (bn_epilogue.py:246-271,
@@ -684,8 +651,9 @@ int masked_dx_res(const void* dres, const void* x, const void* C_, const void* D
   const void* consts[5] = {C_, D, P, k1, k2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_res_dx<__nv_bfloat16>(dres, x, consts, M, C, rows_per_cta, ctas, dx, s);
-  return launch_res_dx<float>(dres, x, consts, M, C, rows_per_cta, ctas, dx, s);
+    return launch_ring_dx<__nv_bfloat16, StoredDy>(dres, x, consts, M, C, rows_per_cta, ctas,
+                                                   dx, s);
+  return launch_ring_dx<float, StoredDy>(dres, x, consts, M, C, rows_per_cta, ctas, dx, s);
 }
 
 // Kernel #9. Replaces _dual_reduce_kernel (fused_bn.py:163-180, called at
@@ -708,7 +676,7 @@ int dual_reduce(const void* g, const void* x, const void* mu, const void* inv, i
                                                      partial, out, s);
 }
 
-// 1 when #5, #7, #8 and #9 take the bulk-copy ring for C channels of the
+// 1 when #5-#9 take the bulk-copy ring for C channels of the
 // dtype with the n planes at ptrs (their bases), 0 when they take the
 // per-element walk
 int bn_ring_fits(int C, int dtype, const void* const* ptrs, int n) {

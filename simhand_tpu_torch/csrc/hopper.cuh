@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels of
-// conv1x1.cu and conv_bias.cu and the bulk-copy rings of bn_epilogue.cu:
+// conv1x1.cu and conv_bias.cu, the TF32 wgmma kernel of ntxent.cu and the
+// bulk-copy rings of bn_epilogue.cu:
 // mbarriers, 1-D bulk copies, TMA loads and stores, the two-CTA cluster,
 // wgmma with its shared-memory descriptors, and the host's handle on
 // cuTensorMapEncodeTiled.

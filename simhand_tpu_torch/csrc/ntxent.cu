@@ -16,32 +16,83 @@
 // and w_ij = (d_max - d_ij) / (d_max - d_min); d_max and d_min are read
 // from device memory, so the caller never synchronises for them.
 //
-// What bounds them on this card: float32 arithmetic on the CUDA cores. At
-// M = N = 16384 the plain pair does 2*M*N*128 = 68.7 GFLOP of dot products
-// (the gradient twice that), the weighted pair adds 21 distance terms with
-// a square root for every (i, j); the bytes (inputs read once) are a few
-// MB. At the training step's M = N = 512 the work is 67 MFLOP and launch
-// latency sets the pace.
+// #1-#3: what bounds them on this card is float32 arithmetic on the CUDA
+// cores. At M = N = 16384 the plain pair does 2*M*N*128 = 68.7 GFLOP of dot
+// products (the gradient twice that), the weighted pair adds 21 distance
+// terms with a square root for every (i, j); the bytes (inputs read once)
+// are a few MB. At the training step's M = N = 512 the work is 67 MFLOP and
+// launch latency sets the pace.
 //
-// Design. The Pallas grid walked its column axis in order and carried the
-// row sums in VMEM scratch. Here a block owns BM = 64 rows, keeps them in
-// shared memory, and loops over column tiles of BN = 64 itself: the
-// (64 x 64) similarity tile is computed by 256 threads, 4 x 4 pairs each,
-// from z tiles (and joint tiles) staged in shared memory; row sums (or the
-// 64 x 128 gradient accumulator) stay in registers, and each output row is
-// written once. No (M, N) plane ever reaches device memory. When the row
-// blocks alone would leave SMs idle, the columns are split over gridDim.y;
-// each split writes its own partial and a second small kernel adds the
-// partials in a fixed order, so every sum is deterministic (no atomics).
-// Arithmetic follows the Pallas kernels: float32 throughout, the distance
-// sum before the *(1/21), cov * w / T, the self mask by global id. The
-// distance and weight arithmetic uses the _rn intrinsics so that nvcc does
-// not contract it into FMAs that the plain PyTorch version does not do.
-// Ragged edges are masked, so any M and N work. A simple design: making it
-// fast (tensor cores, TMA, bf16 operands) is later work.
+// #1-#3's design (ntxent_tile_kernel). The Pallas grid walked its column
+// axis in order and carried the row sums in VMEM scratch. Here a block owns
+// BM = 64 rows, keeps them in shared memory, and loops over column tiles of
+// BN = 64 itself: the (64 x 64) similarity tile is computed by 256 threads,
+// 4 x 4 pairs each, from z tiles (and joint tiles) staged in shared memory;
+// row sums (or the 64 x 128 gradient accumulator) stay in registers, and
+// each output row is written once. No (M, N) plane ever reaches device
+// memory. When the row blocks alone would leave SMs idle, the columns are
+// split over gridDim.y; each split writes its own partial and a second
+// small kernel adds the partials in a fixed order, so every sum is
+// deterministic (no atomics). Arithmetic follows the Pallas kernels:
+// float32 throughout, the distance sum before the *(1/21), cov * w / T, the
+// self mask by global id. The distance and weight arithmetic uses the _rn
+// intrinsics so that nvcc does not contract it into FMAs that the plain
+// PyTorch version does not do. Ragged edges are masked, so any M and N work.
+//
+// #4 (weighted_grad_kernel), designed for Hopper. Its two products, c = z_r
+// z_c^T and G += P z_c (2 * 2 * 128 flops a pair), run on the tensor cores
+// (wgmma) in three TF32 passes: each operand is split as a = hi + lo with
+// hi = tf32(a) and lo = tf32(a - hi), both rounded to nearest (ties away),
+// and the float32 sums take lo*hi, hi*lo, then hi*hi. That keeps a product
+// to about 2^-22 of |a||b| (one TF32 pass: 2^-11, which breaks the
+// gradient's 1e-5 * max|G| limit), at a third of the 495 TFLOP/s TF32 rate.
+// What is left on the CUDA cores bounds it: the 21 joint distances a pair
+// (subtract, square, add, a square root, add), the weight's divide, exp and
+// the self mask, about 230 instructions a pair against the products' 1,536
+// tensor-core flops.
+// - The square root is sqrt.approx (one MUFU operation, within about an
+//   ulp): __fsqrt_rn's slow-path branch kept a thread's pairs from
+//   interleaving. The weights then differ from the plain version's in their
+//   last bits, well inside the gradient's limit at every shape.
+// - The tensor cores' float32 sums truncate, so a long sum in one
+//   accumulator drifts (1e-4 of max|G| over 16,384 columns): each tile's
+//   P z_c starts from 0 there and is added to the row's G in registers by
+//   round-to-nearest float32 adds.
+// - A CTA owns 64 rows and the column tiles of one split, 32 columns a
+//   tile. Its rows' hi and lo planes stay in shared memory for the whole
+//   walk, the A operand of the first product.
+// - Twelve warps, 168 registers each (the register file; a thirteenth
+//   warp would round the allocation up to sixteen and cut it to 128, with
+//   spills). Warps 0-3, the tensor-core warpgroup, issue both products,
+//   compute P = exp(c w / T) w (inv_i + inv_j) from their accumulator and
+//   keep G; warps 4-11, the helpers, compute the distances and weights of
+//   the tile (8 pairs a thread, the row's joints in registers) into a
+//   double-buffered w plane, then split z_c into its operands. Thread 0
+//   keeps three stages of raw column tiles (z_c rows, their joints and
+//   1/neg) arriving through 1-D bulk copies, two tiles ahead; a copy's
+//   ragged tail of fewer than 16 bytes goes by plain stores before the
+//   stage's barrier is posted. Stages, w buffers and operand planes are
+//   handed over by mbarriers; no wgmma is left in flight across a pass of
+//   the loop (one that is makes ptxas serialise them all).
+// - The helpers split z_c into hi and lo twice: as rows of 128 (K = the
+//   feature, the first product's B operand) and transposed, as 128 rows of
+//   32 columns (K = the column, the second product's B operand; TF32 wgmma
+//   takes both operands K-major only). P goes through shared memory as hi
+//   and lo (the A operand). Every operand is stored in the 128-byte swizzle
+//   that wgmma's descriptors name.
+// - Shared memory: rows 64 KB, the split column tile 64 KB, P 16 KB, w 16
+//   KB, three 21.4 KB stages: 225 KB, one CTA an SM.
+// - Splits: when the row blocks are fewer than the SMs the columns are cut
+//   into as many splits as fill them (the wrapper's _grad_grid: 16 of 512
+//   columns at 512 x 512 and of 1,024 at 512 x 16,384, a 4 MiB partial
+//   plane; none at 16,384 x 16,384). The splits' partials are added in
+//   their order by sum_splits_kernel: a second launch gives the same bits.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <initializer_list>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -278,6 +329,351 @@ __global__ void sum_splits_kernel(const float* __restrict__ partial, int splits,
   out[i] = s;
 }
 
+// ---- #4 on Hopper: weighted_grad_kernel ------------------------------------
+
+constexpr int GBM = 64;                    // rows of a CTA
+constexpr int GBN = 32;                    // columns of a tile
+constexpr int GSTAGES = 3;                 // raw column tiles in flight
+constexpr int MMA_THREADS = 128;           // warps 0-3: the tensor-core warpgroup
+constexpr int HELPERS = 256;               // warps 4-11: distances and the split
+constexpr int GTHREADS = MMA_THREADS + HELPERS;   // 12 warps: 168 registers a thread
+// shared memory, from a 1,024-byte aligned base: swizzled K-major planes
+// (rows of 128 bytes, 32 TF32 values, in K-blocks of R rows)
+constexpr int ZR_HI = 0, ZR_LO = 32768;          // z_r: 4 K-blocks x 64 rows
+constexpr int ZC_HI = 65536, ZC_LO = 81920;      // z_c: 4 K-blocks x 32 rows
+constexpr int ZT_HI = 98304, ZT_LO = 114688;     // z_c^T: 1 K-block x 128 rows
+constexpr int P_HI = 131072, P_LO = 139264;      // P: 1 K-block x 64 rows
+constexpr int WPLANE = 147456;                   // w, two buffers of 64 x 32 floats
+constexpr int STAGE0 = WPLANE + 2 * GBM * GBN * 4;   // the ring of raw tiles
+constexpr int ST_Z = 0, ST_J = GBN * D * 4, ST_I = ST_J + GBN * JW * 4;
+constexpr int STAGE_BYTES = ST_I + GBN * 4;      // 21,888
+constexpr int GBARS = STAGE0 + GSTAGES * STAGE_BYTES;
+// full[3], empty[3], w_ready[2], w_free[2], planes_ready, planes_free
+constexpr int NBARS = 2 * GSTAGES + 4 + 2;
+constexpr int GSMEM = GBARS + 8 * NBARS + 1024;  // and the base's alignment
+static_assert(STAGE0 % 16 == 0 && STAGE_BYTES % 16 == 0, "bulk copies land 16-byte aligned");
+static_assert(GSMEM <= 232448, "one CTA an SM");
+
+// round to TF32 (10 explicit mantissa bits), to nearest, ties away from 0
+__device__ __forceinline__ float tf32_rna(float a) {
+  return __uint_as_float((__float_as_uint(a) + 0x1000u) & 0xFFFFE000u);
+}
+__device__ __forceinline__ void split(float a, float& hi, float& lo) {
+  hi = tf32_rna(a);
+  lo = tf32_rna(__fsub_rn(a, hi));
+}
+__device__ __forceinline__ void split4(const float4& a, float4& hi, float4& lo) {
+  split(a.x, hi.x, lo.x), split(a.y, hi.y, lo.y), split(a.z, hi.z, lo.z), split(a.w, hi.w, lo.w);
+}
+
+// byte offset of 16-byte chunk ch (4 K values) of row r in a K-major plane of
+// R-row K-blocks, 128-byte swizzle
+__device__ __forceinline__ int swz(int r, int ch, int R) {
+  return (ch >> 3) * R * 128 + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
+}
+
+#define D16 D8(0), D8(8)
+#define REGS16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (+)= a b, 64 x 8 of A against 32 x 8 of B (TF32, K-major, shared memory)
+__device__ __forceinline__ void mma_n32(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " REGS16
+      ", %16, %17, p, 1, 1;\n}\n"
+      : D16
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+// d (+)= a b, 64 x 8 of A against 64 x 8 of B
+__device__ __forceinline__ void mma_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " REGS32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : D32
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// one MUFU operation, no branch (__fsqrt_rn's slow-path test keeps a
+// thread's pairs from interleaving); within about an ulp, and exact at 0
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float r;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// One CTA: rows [blockIdx.x * GBM, +GBM) against the columns [blockIdx.y *
+// cols_per_split, +cols_per_split) of N; dst is (splits, M, D).
+__global__ void __launch_bounds__(GTHREADS, 1)
+weighted_grad_kernel(const float* __restrict__ z_rows, const float* __restrict__ z_cols,
+                     const float* __restrict__ j_rows, const float* __restrict__ j_cols,
+                     const float* __restrict__ inv_rows, const float* __restrict__ inv_cols,
+                     const int* __restrict__ row_ids, const float* __restrict__ minmax, int M,
+                     int N, float temperature, int cols_per_split, float* __restrict__ dst) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t base = smem_u32(sm);
+  const uint32_t full0 = base + GBARS, empty0 = full0 + 8 * GSTAGES;
+  const uint32_t wready0 = empty0 + 8 * GSTAGES, wfree0 = wready0 + 16;
+  const uint32_t pready = wfree0 + 16, pfree = pready + 8;
+  const int row0 = (int)blockIdx.x * GBM;
+  const int col_begin = (int)blockIdx.y * cols_per_split;
+  const int col_end = min(N, col_begin + cols_per_split);
+  const int tiles = (col_end - col_begin + GBN - 1) / GBN;
+  const int tid = (int)threadIdx.x, lane = tid % 32;
+
+  if (tid == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, GTHREADS / 32);    // every warp reads a stage
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(wready0 + 8 * b, HELPERS / 32);
+      mbar_init(wfree0 + 8 * b, MMA_THREADS / 32);
+    }
+    mbar_init(pready, HELPERS / 32);
+    mbar_init(pfree, MMA_THREADS / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 copies tile k into its stage: z_c rows, their joints and 1/neg;
+  // ragged tails (< 16 bytes) by plain stores, posted with the barrier
+  const auto load_tile = [&](int k) {
+    const int s = k % GSTAGES;
+    if (k >= GSTAGES) mbar_wait(empty0 + 8 * s, (k / GSTAGES - 1) & 1);
+    const int c0 = col_begin + k * GBN, n = min(GBN, col_end - c0);
+    uint8_t* st = sm + STAGE0 + s * STAGE_BYTES;
+    const uint32_t jbytes = n * JW * 4, ibytes = n * 4;
+    const uint32_t jbulk = jbytes & ~15u, ibulk = ibytes & ~15u;
+    for (uint32_t w = jbulk / 4; w < jbytes / 4; ++w)
+      reinterpret_cast<float*>(st + ST_J)[w] = j_cols[(size_t)c0 * JW + w];
+    for (uint32_t w = ibulk / 4; w < ibytes / 4; ++w)
+      reinterpret_cast<float*>(st + ST_I)[w] = inv_cols[c0 + w];
+    const uint32_t bar = full0 + 8 * s, dst0 = base + STAGE0 + s * STAGE_BYTES;
+    mbar_expect_tx(bar, (uint32_t)n * D * 4 + jbulk + ibulk);
+    bulk_load(dst0 + ST_Z, z_cols + (size_t)c0 * D, n * D * 4, bar);
+    if (jbulk) bulk_load(dst0 + ST_J, j_cols + (size_t)c0 * JW, jbulk, bar);
+    if (ibulk) bulk_load(dst0 + ST_I, inv_cols + c0, ibulk, bar);
+  };
+  if (tid == 0)
+    for (int k = 0; k < min(tiles, GSTAGES - 1); ++k) load_tile(k);
+
+  // the rows' hi and lo planes of z_r, shared by every consumer
+  for (int i = tid; i < GBM * (D / 4); i += GTHREADS) {
+    const int r = i / (D / 4), ch = i % (D / 4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < M) v = reinterpret_cast<const float4*>(z_rows + (size_t)(row0 + r) * D)[ch];
+    float4 hi, lo;
+    split4(v, hi, lo);
+    *reinterpret_cast<float4*>(sm + ZR_HI + swz(r, ch, GBM)) = hi;
+    *reinterpret_cast<float4*>(sm + ZR_LO + swz(r, ch, GBM)) = lo;
+  }
+  fence_async_smem();
+  named_sync(1, GTHREADS);
+
+  if (tid >= MMA_THREADS) {
+    // ---- the helpers: row r, columns cg + 4c (c < 8) of every tile ----
+    const int h = tid - MMA_THREADS, r = h / 4, cg = h % 4;
+    float rj[JW];                                    // the row's joints
+#pragma unroll
+    for (int q = 0; q < JW; ++q) rj[q] = row0 + r < M ? j_rows[(size_t)(row0 + r) * JW + q] : 0.f;
+    const float d_max = minmax[0], d_range = __fsub_rn(d_max, minmax[1]);
+    // where w of (r, col) goes: the slot of the MMA thread that holds the
+    // pair in its accumulator, pair index i, as w[i * 128 + thread]
+    const int wslot = (r / 16) * 32 + (r % 8) * 4, wi = 2 * ((r % 16) / 8);
+    for (int k = 0; k < tiles; ++k) {
+      const int s = k % GSTAGES, b = k & 1;
+      const uint8_t* st = sm + STAGE0 + s * STAGE_BYTES;
+      const float* jc = reinterpret_cast<const float*>(st + ST_J);
+      mbar_wait(full0 + 8 * s, (k / GSTAGES) & 1);
+      float dist[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) dist[c] = 0.f;
+#pragma unroll
+      for (int q = 0; q < NJ; ++q)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float2 cj = *reinterpret_cast<const float2*>(jc + (cg + 4 * c) * JW + 2 * q);
+          const float dx = __fsub_rn(rj[2 * q], cj.x), dy = __fsub_rn(rj[2 * q + 1], cj.y);
+          dist[c] = __fadd_rn(dist[c], sqrt_approx(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy))));
+        }
+      if (k >= 2) mbar_wait(wfree0 + 8 * b, (k / 2 - 1) & 1);
+      float* w = reinterpret_cast<float*>(sm + WPLANE + b * GBM * GBN * 4);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int col = cg + 4 * c;
+        const int i = 4 * (col / 8) + wi + col % 2, slot = wslot + (col % 8) / 2;
+        w[i * MMA_THREADS + slot] =
+            __fdiv_rn(__fsub_rn(d_max, __fmul_rn(dist[c], 1.0f / 21.0f)), d_range);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(wready0 + 8 * b);
+
+      // z_c split into hi and lo, as rows (K = feature) and transposed (K =
+      // column), once the last tile's products are done; columns past the
+      // tile's end are zero
+      const int n = min(GBN, col_end - (col_begin + k * GBN));
+      if (k >= 1) mbar_wait(pfree, (k - 1) & 1);
+      {
+        const int jb = h / (D / 4), db = h % (D / 4);
+        float4 hi[4], lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = 4 * jb + e;
+          const float4 v = j < n ? *reinterpret_cast<const float4*>(st + ST_Z + j * D * 4 + db * 16)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+          split4(v, hi[e], lo[e]);
+          *reinterpret_cast<float4*>(sm + ZC_HI + swz(j, db, GBN)) = hi[e];
+          *reinterpret_cast<float4*>(sm + ZC_LO + swz(j, db, GBN)) = lo[e];
+        }
+        const float4 th[4] = {make_float4(hi[0].x, hi[1].x, hi[2].x, hi[3].x),
+                              make_float4(hi[0].y, hi[1].y, hi[2].y, hi[3].y),
+                              make_float4(hi[0].z, hi[1].z, hi[2].z, hi[3].z),
+                              make_float4(hi[0].w, hi[1].w, hi[2].w, hi[3].w)};
+        const float4 tl[4] = {make_float4(lo[0].x, lo[1].x, lo[2].x, lo[3].x),
+                              make_float4(lo[0].y, lo[1].y, lo[2].y, lo[3].y),
+                              make_float4(lo[0].z, lo[1].z, lo[2].z, lo[3].z),
+                              make_float4(lo[0].w, lo[1].w, lo[2].w, lo[3].w)};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          *reinterpret_cast<float4*>(sm + ZT_HI + swz(4 * db + e, jb, D)) = th[e];
+          *reinterpret_cast<float4*>(sm + ZT_LO + swz(4 * db + e, jb, D)) = tl[e];
+        }
+      }
+      fence_async_smem();
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(pready);
+        mbar_arrive(empty0 + 8 * s);                 // the raw tile is consumed here
+      }
+    }
+    return;
+  }
+
+  // ---- the tensor-core warpgroup: rows ra, rb; columns 8q + 2t + e ----
+  const int warp = tid / 32, gq = lane / 4, t = lane % 4;
+  const int ra = 16 * warp + gq, rb = ra + 8;
+  int rid[2];
+  float inv_r[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row0 + (hh ? rb : ra);
+    rid[hh] = r < M ? row_ids[r] : -1;      // global ids are >= 0
+    inv_r[hh] = r < M ? inv_rows[r] : 0.f;
+  }
+  // G: each tile's P z_c on the tensor cores from 0 (their float32 sums
+  // truncate, so a long sum there drifts), added here by round-to-nearest
+  // float32 adds, tile after tile; every wgmma group is waited for inside
+  // its pass of the loop (one in flight across the back edge makes ptxas
+  // serialise them)
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int k = 0; k < tiles; ++k) {
+    const int s = k % GSTAGES, b = k & 1;
+    const int c0 = col_begin + k * GBN, n = min(GBN, col_end - c0);
+    const float* ic = reinterpret_cast<const float*>(sm + STAGE0 + s * STAGE_BYTES + ST_I);
+    // two tiles ahead, into the stage tile k - 1 has left
+    if (tid == 0 && k + GSTAGES - 1 < tiles) load_tile(k + GSTAGES - 1);
+    __syncwarp();                 // warp 0 whole again before the .aligned wgmma
+
+    // c = z_r z_c^T: lo*hi, hi*lo, then hi*hi, 16 K-steps each
+    mbar_wait(pready, k & 1);
+    float cov[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) cov[i] = 0.f;
+    fence_regs(cov);
+    wgmma_fence();
+    {
+      const uint32_t as[3] = {ZR_LO, ZR_HI, ZR_HI}, bs[3] = {ZC_HI, ZC_LO, ZC_HI};
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int ks = 0; ks < D / 8; ++ks) {
+          const uint32_t ka = (ks / 4) * GBM * 128 + (ks % 4) * 32;
+          const uint32_t kb = (ks / 4) * GBN * 128 + (ks % 4) * 32;
+          mma_n32(cov, smem_desc(base + as[p] + ka), smem_desc(base + bs[p] + kb), p + ks > 0);
+        }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(cov);
+
+    // P = exp(c w / T) w (inv_i + inv_j), 0 on the self pair and past the end
+    mbar_wait(full0 + 8 * s, (k / GSTAGES) & 1);    // 1/neg of the columns
+    mbar_wait(wready0 + 8 * b, (k / 2) & 1);
+    const float* w = reinterpret_cast<const float*>(sm + WPLANE + b * GBM * GBN * 4);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * q + 2 * hh + e, j = 8 * q + 2 * t + e;
+          const float wv = w[i * MMA_THREADS + tid];
+          const float ex = expf(__fdiv_rn(__fmul_rn(cov[i], wv), temperature));
+          const float pv = __fmul_rn(__fmul_rn(ex, wv), __fadd_rn(inv_r[hh], ic[j]));
+          v[e] = (j < n && c0 + j != rid[hh] && rid[hh] >= 0) ? pv : 0.f;
+        }
+        const int r = hh ? rb : ra, ch = 2 * q + t / 2, off = (2 * t) % 4 * 4;
+        float2 hi, lo;
+        split(v[0], hi.x, lo.x);
+        split(v[1], hi.y, lo.y);
+        *reinterpret_cast<float2*>(sm + P_HI + swz(r, ch, GBM) + off) = hi;
+        *reinterpret_cast<float2*>(sm + P_LO + swz(r, ch, GBM) + off) = lo;
+      }
+    fence_async_smem();
+    named_sync(2, MMA_THREADS);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(wfree0 + 8 * b);
+      mbar_arrive(empty0 + 8 * s);
+    }
+
+    // G += P z_c in two halves of 64 features: lo*hi, hi*lo, hi*hi, 4 K-steps each
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float part[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) part[i] = 0.f;
+      fence_regs(part);
+      wgmma_fence();
+      const uint32_t as[3] = {P_LO, P_HI, P_HI}, bs[3] = {ZT_HI, ZT_LO, ZT_HI};
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int ks = 0; ks < GBN / 8; ++ks)
+          mma_n64(part, smem_desc(base + as[p] + ks * 32),
+                  smem_desc(base + bs[p] + half * 64 * 128 + ks * 32), p + ks > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[32 * half + i] = __fadd_rn(acc[32 * half + i], part[i]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(pfree);                // the planes may be overwritten
+  }
+
+  float* out = dst + (size_t)blockIdx.y * M * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row0 + (hh ? rb : ra);
+    if (r < M) {
+#pragma unroll
+      for (int q = 0; q < D / 8; ++q)
+        *reinterpret_cast<float2*>(out + (size_t)r * D + 8 * q + 2 * t) =
+            make_float2(acc[4 * q + 2 * hh], acc[4 * q + 2 * hh + 1]);
+    }
+  }
+}
+
+#undef D16
+#undef REGS16
+
 template <bool WEIGHTED, bool GRAD>
 int launch(const void* z_rows, const void* z_cols, const void* j_rows,
            const void* j_cols, const void* inv_rows, const void* inv_cols,
@@ -309,6 +705,45 @@ int launch(const void* z_rows, const void* z_cols, const void* j_rows,
   sum_splits_kernel<<<(unsigned)((count + 255) / 256), 256, 0, s>>>(
       dst, splits, count, static_cast<float*>(out));
   return (int)cudaGetLastError();
+}
+
+// #4: the CTAs of weighted_grad_kernel, then with splits, the fixed-order
+// sum of their partials
+int launch_weighted_grad(const void* z_rows, const void* z_cols, const void* j_rows,
+                         const void* j_cols, const void* inv_rows, const void* inv_cols,
+                         const void* row_ids, const void* minmax, int M, int N,
+                         float temperature, int splits, int cols_per_split, void* partial,
+                         void* out, cudaStream_t s) {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64 || !done[dev]) {
+    err = cudaFuncSetAttribute(weighted_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               GSMEM);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) done[dev] = true;
+  }
+  float* dst = static_cast<float*>(splits == 1 ? out : partial);
+  const dim3 grid((M + GBM - 1) / GBM, splits);
+  weighted_grad_kernel<<<grid, GTHREADS, GSMEM, s>>>(
+      static_cast<const float*>(z_rows), static_cast<const float*>(z_cols),
+      static_cast<const float*>(j_rows), static_cast<const float*>(j_cols),
+      static_cast<const float*>(inv_rows), static_cast<const float*>(inv_cols),
+      static_cast<const int*>(row_ids), static_cast<const float*>(minmax), M, N, temperature,
+      cols_per_split, dst);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const int64_t count = (int64_t)M * D;
+  sum_splits_kernel<<<(unsigned)((count + 255) / 256), 256, 0, s>>>(dst, splits, count,
+                                                                    static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+bool misaligned(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return true;
+  return false;
 }
 
 }  // namespace
@@ -359,17 +794,25 @@ int ntxent_grad(const void* z_rows, const void* z_cols, const void* inv_rows,
 }
 
 // Replaces _weighted_grad_kernel (pallas_ntxent.py:316-360, called at :608).
-// #3's work plus #2's weight recomputation; same bound as #2 plus the second
-// product.
+// The products on the tensor cores in three TF32 passes, the distances on
+// the CUDA cores (see the note above). Split s of the splits takes the
+// columns [s * cols_per_split, (s + 1) * cols_per_split), a multiple of 32,
+// and the splits cover the N columns exactly; z_cols, j_cols and inv_cols
+// are 16-byte aligned (bulk copies), z_rows too (float4 loads).
 int weighted_grad_rows(const void* z_rows, const void* z_cols,
                        const void* j_rows, const void* j_cols,
                        const void* inv_rows, const void* inv_cols,
                        const void* row_ids, const void* minmax, int M, int N,
-                       float temperature, int splits, void* partial,
-                       void* out, void* stream) {
-  return launch<true, true>(z_rows, z_cols, j_rows, j_cols, inv_rows,
-                            inv_cols, row_ids, minmax, M, N, temperature,
-                            splits, partial, out, stream);
+                       float temperature, int splits, int cols_per_split,
+                       void* partial, void* out, void* stream) {
+  if (M <= 0 || N <= 0 || splits <= 0 || cols_per_split <= 0 || cols_per_split % GBN != 0 ||
+      (long long)cols_per_split * splits < N || (long long)cols_per_split * (splits - 1) >= N ||
+      splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (misaligned({z_rows, z_cols, j_cols, inv_cols})) return (int)cudaErrorMisalignedAddress;
+  return launch_weighted_grad(z_rows, z_cols, j_rows, j_cols, inv_rows, inv_cols, row_ids,
+                              minmax, M, N, temperature, splits, cols_per_split, partial, out,
+                              static_cast<cudaStream_t>(stream));
 }
 
 const char* ntxent_error_string(int err) {

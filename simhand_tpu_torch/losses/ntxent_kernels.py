@@ -25,14 +25,15 @@ from simhand_tpu_torch import native
 from simhand_tpu_torch.device import on_cpu
 
 D = 128          # projection width the kernels are built for
-_BM, _BN = 64, 64  # row block and column tile of csrc/ntxent.cu
+_BM, _BN = 64, 64  # row block and column tile of #1-#3 in csrc/ntxent.cu
+_GBM, _GBN = 64, 32  # row block and column tile of #4 (weighted_grad_kernel)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ntxent_denominator": [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P],
     "weighted_ntxent_denominator": [_P] * 6 + [_I, _I, _F, _I, _P, _P, _P],
     "ntxent_grad": [_P] * 5 + [_I, _I, _F, _I, _P, _P, _P],
-    "weighted_grad_rows": [_P] * 8 + [_I, _I, _F, _I, _P, _P, _P],
+    "weighted_grad_rows": [_P] * 8 + [_I, _I, _F, _I, _I, _P, _P, _P],
 }
 
 
@@ -128,19 +129,40 @@ def _minmax(d_max: torch.Tensor, d_min: torch.Tensor) -> torch.Tensor:
     return torch.stack([d_max, d_min])
 
 
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _splits(m: int, n: int, device: torch.device) -> int:
-    """Column splits of the grid: enough for about two blocks per SM when the
-    row blocks alone are too few, but at most one per column tile (so 8 x 8
-    = 64 blocks at 512 x 512). The partials are added in a second pass."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    """Column splits of #1-#3's grid: enough for about two blocks per SM when
+    the row blocks alone are too few, but at most one per column tile (so 8
+    x 8 = 64 blocks at 512 x 512). The partials are added in a second pass."""
     row_blocks = math.ceil(m / _BM)
-    return max(1, min(math.ceil(n / _BN), math.ceil(2 * sms / row_blocks)))
+    return max(1, min(math.ceil(n / _BN), math.ceil(2 * _sm_count(device) / row_blocks)))
+
+
+def _grad_grid(m: int, n: int, device: torch.device) -> tuple[int, int]:
+    """(splits, columns a split takes) of #4's grid (one CTA an SM): when its
+    row blocks are fewer than the SMs, as many splits of whole column tiles
+    as fill the SMs, none empty. The (splits, M, 128) float32 partials are
+    added in a second pass: 4 MiB at 512 x 512 and 512 x 16,384 (16 splits),
+    none at 16,384 x 16,384."""
+    tiles = math.ceil(n / _GBN)
+    want = max(1, min(tiles, _sm_count(device) // math.ceil(m / _GBM)))
+    per = math.ceil(tiles / want)
+    return math.ceil(tiles / per), per * _GBN
 
 
 def _launch(name: str, inputs: list, m: int, n: int, temperature: float,
             out: torch.Tensor) -> None:
+    if name == "weighted_grad_rows":
+        splits, cols = _grad_grid(m, n, out.device)
+        grid = [splits, cols]
+    else:
+        splits = _splits(m, n, out.device)
+        grid = [splits]
     lib = _library()
-    splits = _splits(m, n, out.device)
     # partial (and the caller's temporaries) may be freed once this returns:
     # the caching allocator hands their memory only to work queued later on
     # the same stream, which runs after both kernels
@@ -148,7 +170,7 @@ def _launch(name: str, inputs: list, m: int, n: int, temperature: float,
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = getattr(lib, name)(
-            *[t.data_ptr() for t in inputs], m, n, float(temperature), splits,
+            *[t.data_ptr() for t in inputs], m, n, float(temperature), *grid,
             partial.data_ptr(), out.data_ptr(), stream,
         )
     if err != 0:
@@ -229,6 +251,9 @@ def weighted_grad_rows(z_rows, z_cols, j_rows, j_cols, inv_rows, inv_cols,
     _check(row_ids, "row_ids", (m,), torch.int32)
     minmax = _minmax(d_max, d_min)
     out = z_rows.new_empty((m, D))
+    # #4 reads the columns' joints and 1/neg by bulk copies from 16-byte
+    # aligned bases: a view elsewhere is copied
+    j_cols, inv_cols = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (j_cols, inv_cols))
     _launch("weighted_grad_rows",
             [z_rows, z_cols, j_rows, j_cols, inv_rows, inv_cols, row_ids, minmax],
             m, n, temperature, out)

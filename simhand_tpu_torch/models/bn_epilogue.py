@@ -39,9 +39,7 @@ from simhand_tpu_torch import native
 from simhand_tpu_torch.device import on_cpu
 from simhand_tpu_torch.models.layers import BatchNorm2d
 
-_TX = 32               # channels of a block of #6 in csrc/bn_epilogue.cu
-_MIN_ROWS = 64         # fewest rows such a block walks
-_CTAS_PER_SM = 2       # the persistent grid of #5, #7, #8 and #9
+_CTAS_PER_SM = 2       # the persistent grid of #5-#9
 _MIN_CTA_BYTES = 16384  # fewest bytes of a plane a CTA of that grid walks
 _RING_SPAN = 2048      # channels of a CTA's row lane on the ring: C divides it
 _STAGE_PLANE = 8192    # bytes of a plane in a stage of the ring
@@ -159,16 +157,8 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _rows_per_block(m: int, c: int, device: torch.device) -> int:
-    """Rows a block of #6 walks: about eight blocks per SM over the whole
-    plane, each walking at least _MIN_ROWS rows."""
-    blocks_y = max(1, min(math.ceil(8 * _sm_count(device) / math.ceil(c / _TX)),
-                          math.ceil(m / _MIN_ROWS)))
-    return math.ceil(m / blocks_y)
-
-
 def _persistent_grid(m: int, c: int, esize: int, device: torch.device) -> tuple[int, int]:
-    """(rows a CTA walks, CTAs) of #5, #7, #8 and #9: _CTAS_PER_SM per SM,
+    """(rows a CTA walks, CTAs) of #5-#9: _CTAS_PER_SM per SM,
     each taking one contiguous share of the rows, at least _MIN_CTA_BYTES of
     a plane."""
     ctas = max(1, min(_CTAS_PER_SM * _sm_count(device), m * c * esize // _MIN_CTA_BYTES))
@@ -198,7 +188,7 @@ def _launch(name: str, planes, consts, grid, outs) -> None:
 
 
 def ring_fits(c: int, esize: int, *ptrs: int) -> bool:
-    """Whether #5, #7, #8 and #9 take the bulk-copy ring for C channels of
+    """Whether #5-#9 take the bulk-copy ring for C channels of
     esize bytes with planes at the base addresses ptrs, or else the
     per-element walk; mirrors ``bn_ring_fits`` of csrc/bn_epilogue.cu."""
     return (c % 8 == 0 and _RING_SPAN % c == 0 and c * esize <= _STAGE_PLANE
@@ -224,10 +214,13 @@ def _reduce(name: str, planes, consts, *more_outs) -> torch.Tensor:
     return out
 
 
-def _block_grid(x2d) -> tuple[int, int]:
-    m, c = x2d.shape
-    rows = _rows_per_block(m, c, x2d.device)
-    return rows, math.ceil(m / rows)
+def _dx_launch(name: str, src, x2d, consts) -> torch.Tensor:
+    """Launches the dx kernel ``name`` (#6 from g, #8 from dres) on the
+    persistent grid of x2d; returns its (M, C) dx."""
+    dx = torch.empty_like(x2d)
+    _launch(name, [src, x2d], consts,
+            _persistent_grid(*x2d.shape, x2d.element_size(), x2d.device), [dx])
+    return dx
 
 
 # --------------------------------------------------------------------------
@@ -249,9 +242,8 @@ def masked_dx(g, x, A, B, C, D, P, k1, k2):
     if on_cpu(g, x, A, B, C, D, P, k1, k2):
         return from_rows(masked_dx_plain(as_rows(g), as_rows(x), A, B, C, D, P, k1, k2), x)
     x2d = _plane(x, "x")
-    dx = torch.empty_like(x2d)
-    _launch("masked_dx", [_gradient_plane(g, x), x2d],
-            dict(A=A, B=B, C=C, D=D, P=P, k1=k1, k2=k2), _block_grid(x2d), [dx])
+    dx = _dx_launch("masked_dx", _gradient_plane(g, x), x2d,
+                    dict(A=A, B=B, C=C, D=D, P=P, k1=k1, k2=k2))
     masked_dx.launches += 1
     return from_rows(dx, x)
 
@@ -277,10 +269,8 @@ def masked_dx_res(dres, x, C, D, P, k1, k2):
     if on_cpu(dres, x, C, D, P, k1, k2):
         return from_rows(masked_dx_res_plain(as_rows(dres), as_rows(x), C, D, P, k1, k2), x)
     x2d = _plane(x, "x")
-    dx = torch.empty_like(x2d)
-    _launch("masked_dx_res", [_plane(dres, "dres", x), x2d],
-            dict(C=C, D=D, P=P, k1=k1, k2=k2),
-            _persistent_grid(*x2d.shape, x2d.element_size(), x2d.device), [dx])
+    dx = _dx_launch("masked_dx_res", _plane(dres, "dres", x), x2d,
+                    dict(C=C, D=D, P=P, k1=k1, k2=k2))
     masked_dx_res.launches += 1
     return from_rows(dx, x)
 

@@ -219,7 +219,7 @@ def resnet50_bn_sites(images: int, side: int, downsample: bool = True) -> list:
 
 
 def test_persistent_grid_covers_the_rows(monkeypatch):
-    """The ring kernels' grid (#5, #7, #8, #9): contiguous row shares that
+    """The ring kernels' grid (#5-#9): contiguous row shares that
     cover M exactly, at most two CTAs an SM, each walking at least
     _MIN_CTA_BYTES of a plane; at the 53 BatchNorm sites of the step at
     B = 256 pairs (512 images of 128x128) in both dtypes, and at ragged and
@@ -240,11 +240,14 @@ def test_persistent_grid_covers_the_rows(monkeypatch):
 
 @pytest.mark.parametrize("bn_fused", ["epilogue", "pallas"])
 def test_resnet_bn_sites_take_the_ring(bn_fused):
-    """Every BatchNorm site whose backward runs a ring kernel (#5/#7 and
-    their dx passes for "epilogue", #9 for "pallas") passes ring_fits, the
-    mirror of the CUDA source's test: ResNet-50 at two 128x128 images (the
-    projection head's train-mode BatchNorm needs more than one) in bf16, forward hooks recording each site's C, dtype and planes. The
-    ragged 1,000 x 96 and a base one element off do not."""
+    """Every BatchNorm site whose backward runs a ring kernel (#5-#8 for
+    "epilogue", #9 for "pallas") passes ring_fits, the mirror of the CUDA
+    source's test: ResNet-50 at two 128x128 images (the projection head's
+    train-mode BatchNorm needs more than one) in bf16, forward hooks
+    recording each site's C, dtype and planes; for "epilogue", backward
+    hooks also record the planes of #6's launch (g as the wrapper hands it
+    on, x, and a dx allocated as the wrapper allocates it). The ragged
+    1,000 x 96 and a base one element off do not."""
     from simhand_tpu_torch.models.fused_bn import FusedBatchNorm
 
     cls = T.BNRelu if bn_fused == "epilogue" else FusedBatchNorm
@@ -257,17 +260,40 @@ def test_resnet_bn_sites_take_the_ring(bn_fused):
         seen.append((x.numel() // x.shape[1], x.shape[1], x.dtype,
                      T.ring_fits(x.shape[1], x.element_size(), *(t.data_ptr() for t in planes))))
 
+    saved, dx_planes = {}, []
+
+    def keep_x(module, args, _out):
+        if len(args) == 1 or args[1] is None:        # #6's sites: no residual
+            saved[module] = args[0]
+
+    def dx_hook(module, grad_output):
+        # the planes of masked_dx(g, x, ...): the gradient plane the wrapper
+        # hands on, x, and its dx
+        if module in saved:
+            x = saved[module]
+            g2d, x2d = T._gradient_plane(grad_output[0], x), T._plane(x, "x")
+            dx = torch.empty_like(x2d)
+            dx_planes.append(T.ring_fits(x.shape[1], x.element_size(),
+                                         *(t.data_ptr() for t in (g2d, x2d, dx))))
+
     for mod in model.modules():
         if isinstance(mod, cls):
             mod.register_forward_hook(hook)
+            if bn_fused == "epilogue":
+                mod.register_forward_hook(keep_x)
+                mod.register_full_backward_pre_hook(dx_hook)
     x = np.random.default_rng(5).normal(size=(2, 128, 128, 3)).astype(np.float32)
-    with torch.no_grad():
-        model(torch.from_numpy(x))
+    with torch.set_grad_enabled(bn_fused == "epilogue"):
+        out = model(torch.from_numpy(x))
     # "epilogue" keeps the downsample BatchNorms exact
     want = resnet50_bn_sites(2, 128, downsample=bn_fused == "pallas")
     assert len(seen) == {"epilogue": 49, "pallas": 53}[bn_fused]
     assert sorted((m, c) for m, c, _, _ in seen) == sorted(want)
     assert all(dtype == torch.bfloat16 and fits for _, _, dtype, fits in seen)
+    if bn_fused == "epilogue":
+        sum(o.float().sum() for o in out).backward()
+        # #6 at the stem and at bn1/bn2 of the 16 bottlenecks
+        assert len(dx_planes) == 33 and all(dx_planes)
     assert T.ring_fits(64, 4, 0, 256) and T.ring_fits(2048, 2, 512)
     assert not T.ring_fits(96, 2, 0)                    # 1,000 x 96: C divides no 2,048
     assert not T.ring_fits(256, 2, 0, 2)                # a bf16 base one element off

@@ -53,12 +53,18 @@ def _inputs(gen, m, n, offset):
     }
 
 
+# (M, N, row offset): the training step's shape, and ragged shapes that end
+# inside a tile (every row and column edge is masked in the kernels; 4,099
+# columns end inside #4's 32-column tile and leave its copies of joints and
+# 1/neg ragged tails, 509 rows end inside its 64-row block)
+NTXENT_CASES = [(512, 512, 0), (300, 700, 37), (1, 65, 64), (509, 4099, 37)]
+NTXENT_IDS = ["step", "ragged-shard", "one-row", "ragged-tile"]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n,offset", [(512, 512, 0), (300, 700, 37), (1, 65, 64)],
-                         ids=["step", "ragged-shard", "one-row"])
+@pytest.mark.parametrize("m,n,offset", NTXENT_CASES, ids=NTXENT_IDS)
 def test_kernels_match_plain_versions(cuda, m, n, offset):
-    """The training step's shape, and ragged shapes that end inside a tile
-    (every row and column edge is masked in the kernel)."""
+    """Each kernel against its plain version."""
     K.reset_launches()
     for name, args in _inputs(cuda, m, n, offset).items():
         args = tuple(a.contiguous() for a in args)
@@ -69,6 +75,22 @@ def test_kernels_match_plain_versions(cuda, m, n, offset):
         else:
             torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
     assert [fn.launches for fn in K.KERNELS] == [1, 1, 1, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,offset", NTXENT_CASES, ids=NTXENT_IDS)
+def test_weighted_grad_rows_repeats_bit_for_bit(cuda, m, n, offset):
+    """#4 (three-pass TF32 products, column splits added in a fixed order):
+    a second launch gives the same bits, within the limit of the plain
+    version."""
+    args = tuple(a.contiguous() for a in _inputs(cuda, m, n, offset)["weighted_grad_rows"])
+    K.reset_launches()
+    got, again = K.weighted_grad_rows(*args, T), K.weighted_grad_rows(*args, T)
+    want = K.weighted_grad_rows_plain(*args, T)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert K.weighted_grad_rows.launches == 2
 
 
 @pytest.mark.gpu
@@ -157,7 +179,7 @@ def test_bn_epilogue_kernels_match_plain_versions(cuda, shape, offset, dtype):
     not channels-last (the wrapper copies it). Sums to rel 1e-5 of the
     largest (the same float32 terms added in another order); dres and dx
     equal bit for bit (the same float32 operations, each rounded, in the
-    same order); a second launch of #5, #7 and #8 gives the same bits, sums
+    same order); a second launch of each gives the same bits, sums
     included."""
     from simhand_tpu_torch.models import bn_epilogue as E
 
@@ -176,10 +198,12 @@ def test_bn_epilogue_kernels_match_plain_versions(cuda, shape, offset, dtype):
     assert all(torch.equal(a, b) for a, b in zip(again, sums))
     k = [v / m for v in want_sums]
     dx = E.masked_dx(g, x, *consts, P, *k)
+    dx_again = E.masked_dx(g, x, *consts, P, *k)
     torch.cuda.synchronize()
     assert dx.shape == x.shape and dx.dtype == dtype
     assert dx.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(E.as_rows(dx), E.masked_dx_plain(g2d, x2d, *consts, P, *k))
+    assert torch.equal(dx_again, dx)
 
     *res_sums, dres = E.masked_dual_reduce_res(g, x, r, *consts)
     *want_sums, want_dres = E.masked_dual_reduce_res_plain(g2d, x2d, r2d, *consts)
@@ -200,7 +224,7 @@ def test_bn_epilogue_kernels_match_plain_versions(cuda, shape, offset, dtype):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(again, res_sums))
     assert torch.equal(dres2, dres) and torch.equal(dx2, dx)
-    assert [fn.launches for fn in E.KERNELS] == [2, 1, 2, 2]
+    assert [fn.launches for fn in E.KERNELS] == [2, 2, 2, 2]
 
 
 @pytest.mark.gpu

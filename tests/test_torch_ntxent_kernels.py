@@ -6,6 +6,8 @@ On the CPU the wrappers take their kernels' plain versions; the CUDA
 kernels themselves run only on the card (``tests/test_torch_gpu_kernels.py``
 and ``chip_smoke.py``). Inputs are made from a seed with numpy.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -184,3 +186,75 @@ def test_contrastive_loss_from_projections_matches(etype, use_pallas):
     assert got.item() == pytest.approx(float(want), rel=1e-5)
     # the gradient passes the equivariance transform's normalisations
     np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-3, atol=1e-8)
+
+
+# --------------------------------------------------------------------------
+# kernel #4's grid and its three-pass TF32 products
+# --------------------------------------------------------------------------
+
+# (M, N, splits, partial plane bytes) as the note of csrc/ntxent.cu states
+# them for an H100's 132 SMs
+GRAD_GRIDS = [(512, 512, 16, 4 * 2**20), (512, 16384, 16, 4 * 2**20),
+              (16384, 16384, 1, 0)]
+
+
+@pytest.mark.parametrize("m,n,splits,partial_bytes", GRAD_GRIDS,
+                         ids=["512x512", "512x16384", "16384x16384"])
+def test_weighted_grad_grid_covers_every_column_tile_once(monkeypatch, m, n, splits,
+                                                          partial_bytes):
+    monkeypatch.setattr(K, "_sm_count", lambda device: 132)
+    got, cols = K._grad_grid(m, n, None)
+    assert (got, got * m * K.D * 4 if got > 1 else 0) == (splits, partial_bytes)
+    assert cols % K._GBN == 0
+    # split s takes the columns [s * cols, (s + 1) * cols) of N
+    tiles = [tile for s in range(got)
+             for tile in range(s * cols // K._GBN, math.ceil(min(n, (s + 1) * cols) / K._GBN))]
+    assert sorted(tiles) == list(range(math.ceil(n / K._GBN)))  # each tile exactly once
+    assert (got - 1) * cols < n                                 # no split is empty
+    assert got * math.ceil(m / K._GBM) <= 132 or got == 1       # one wave where split
+
+
+def tf32(a: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 explicit mantissa bits), to nearest, ties
+    away from 0, through the bit pattern: the kernel's tf32_rna."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b in float32 with the operands' TF32 splits: three passes (lo*hi,
+    hi*lo, hi*hi) as the kernel's wgmma runs them, or hi*hi alone."""
+    a_hi, b_hi = tf32(a), tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = tf32(a - a_hi), tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def weighted_grad_tf32(zr, zc, jr, jc, inv_r, inv_c, ids, d_max, d_min, passes):
+    """weighted_grad_rows_plain with both products through tf32_matmul."""
+    w = K._weights_plain(jr, jc, d_max, d_min)
+    g = torch.exp(tf32_matmul(zr, zc.T, passes) * w / T) * w * (inv_r[:, None] + inv_c[None, :])
+    g = torch.where(K._self_mask(ids, zc.shape[0]), 0.0, g)
+    return tf32_matmul(g, zc, passes)
+
+
+def test_three_tf32_passes_keep_the_gradient_within_its_limit():
+    """The kernel's products, emulated: three TF32 passes stay within the
+    card's limit for #4 (1e-5 of max|G|) of the float64 function at 512 rows
+    against 2,048 columns; one pass does not."""
+    rng = np.random.default_rng(3)
+    n, m = 2048, 512
+    zc = torch.from_numpy(normalize(rng.normal(size=(n, 128))))
+    jc = torch.from_numpy(rng.uniform(0, 128, (n, 21, 2)).astype(np.float32))
+    ids = torch.arange(n, dtype=torch.int32)
+    d = torch.cdist(jc.double().permute(1, 0, 2), jc.double().permute(1, 0, 2)).mean(0)
+    d_max, d_min = d.max().float(), d.min().float()
+    inv = (1.0 / K.ntxent_denominator_plain(zc.double(), zc.double(), ids, T)).float()
+    args = (zc[:m], zc, jc[:m], jc, inv[:m], inv, ids[:m])
+    want = K.weighted_grad_rows_plain(*(a.double() if a.is_floating_point() else a
+                                        for a in args), d_max.double(), d_min.double(), T)
+    limit = 1e-5 * float(want.abs().max())
+    errs = {p: float((weighted_grad_tf32(*args, d_max, d_min, p).double() - want).abs().max())
+            for p in (3, 1)}
+    assert errs[3] <= limit < errs[1], (errs, limit)
