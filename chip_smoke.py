@@ -9,12 +9,12 @@
    in float32 (TF32 off) at three shapes: the training step's 512 x 512, a
    512-row shard against 16384 columns, and 16384 x 16384 (8192 pairs, the
    paper's global batch on one card); denominators within rtol 1e-5,
-   gradients within 1e-5 * max|G|; #4 (three-pass TF32 products) also a
-   second launch equal bit for bit, and its earlier CUDA-core design timed
-   beside it; times each with CUDA events over back-to-back calls (host
-   enqueue included) and with torch.profiler (the device time of its
-   kernels alone), beside its bound and the unit that sets it (bytes, the
-   tensor cores' TF32 rate or the CUDA cores' float32 rate);
+   gradients within 1e-5 * max|G|; #2-#4 (three-pass TF32 products on the
+   tensor cores, column splits summed in a fixed order) also a second
+   launch equal bit for bit; times each with CUDA events over back-to-back
+   calls (host enqueue included) and with torch.profiler (the device time
+   of its kernels alone), beside its bound and the unit that sets it
+   (bytes, the tensor cores' TF32 rate or the CUDA cores' float32 rate);
 3. runs the simhand_w pre-training step as ``bench.py`` builds it
    (ResNet-50, 128x128, bf16, B = 256 pairs, use_pallas=True, LARS) on a
    synthetic batch made on the card from ``--seed``: the step-0 loss and
@@ -23,7 +23,9 @@
    #2 and #4 must launch on every step; then img/s of the kernel route and
    of the dense route, timed in turns, one eval step, and a torch.profiler
    breakdown of three kernel-route steps with the share of their wall time
-   in which the card ran no kernel (profiler on);
+   in which the card ran no kernel (profiler on), each NT-Xent kernel's ms
+   and launches a step with its sum pass, and the launches of #2, #4 and
+   their sum passes required;
 4. holds each of the four fused BN+ReLU backward kernels (#5-#8, csrc/
    bn_epilogue.cu) against its plain PyTorch version in bf16 and float32 at
    the ResNet-50 step's stem (2,097,152 x 64), layer1-bn3 (524,288 x 256)
@@ -49,8 +51,11 @@
    launches per step (sum passes included; #6 and #8 told apart by their
    template argument) beside its bound over the step's own sites, and #5
    and #6 timed alone at each distinct site;
-6. runs two steps of the plain family (simhand-base), which must launch
-   kernels #1 and #3 on every step;
+6. holds the plain family's (simhand-base) step-0 loss and dL/dprojections
+   against its dense route on the same projections (rel 1e-4; 1e-3 of the
+   largest), runs two steps, which must launch kernels #1 and #3 on every
+   step, and profiles three: #1's and #3's ms and launches a step, each
+   with its sum pass, the launches required;
 7. holds kernel #9 (the two reduces of the plain BatchNorm backward,
    csrc/bn_epilogue.cu) against its plain version in bf16 and float32 at the
    sites of phase 4, also with a gradient that is not channels-last (the
@@ -239,6 +244,16 @@ F32_Y_RTOL, F32_LOSS_RTOL, F32_STEPS = 1e-5, 1e-5, 2
 SHAPES = (("512x512", 512, 512, 0), ("512x16384", 512, 16384, 4096),
           ("16384x16384", 16384, 16384, 0))
 MAIN_SHAPE = "512x512"
+# each NT-Xent kernel's profile group, (name, substrings of its kernels'
+# names): its main kernel and its own instance of the splits' sum pass
+NTXENT_PROFILE_GROUPS = {
+    "ntxent_denominator": ("ntxent_denominator", ("ntxent_tile_kernel", "sum_splits_kernel<1>")),
+    "weighted_ntxent_denominator": ("ntxent_weighted_denominator",
+                                    ("weighted_denom_kernel", "sum_splits_kernel<2>")),
+    "ntxent_grad": ("ntxent_grad", ("plain_grad_kernel", "sum_splits_kernel<3>")),
+    "weighted_grad_rows": ("ntxent_weighted_grad", ("weighted_grad_kernel",
+                                                    "sum_splits_kernel<4>")),
+}
 AUGMENTATION = ("crop", "rotate", "resize")
 # the step bench.py builds, at the smallest batch that takes the kernel route
 RESNET, SIDE, PAIRS = "50", 128, 256
@@ -413,7 +428,7 @@ def kernel_phase(seed: int) -> dict:
             row = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, "bound_unit": unit,
                    "bound_share": bound_ms / dev_ms}
-            if name == "weighted_grad_rows":
+            if name in K._TENSOR_CORE:
                 # the column splits' sum has a fixed order
                 again = kernel(*a)
                 torch.cuda.synchronize()
@@ -454,10 +469,11 @@ def synthetic_batch(seed: int) -> dict:
     }
 
 
-def compare_routes(state, batch, cfg):
+def compare_routes(state, batch, cfg, what: str = "step 0"):
     """The loss and dL/dprojections of both routes from the same
-    projections of a copy of the state. Returns that copy, on which the
-    caller runs the dense route's step 0."""
+    projections of a copy of the state: within rel 1e-4 and 1e-3 of the
+    gradient's largest. Returns that copy, on which the caller runs the
+    dense route's step 0."""
     import torch
 
     from simhand_tpu_torch.models import contrastive_loss_from_projections
@@ -475,10 +491,10 @@ def compare_routes(state, batch, cfg):
     (lk, gk), (ld, gd) = grads["kernel"], grads["dense"]
     g_err = float((gk - gd).abs().max())
     g_max = float(gd.abs().max())
-    print(f"step 0 routes: loss kernel={lk:.7f} dense={ld:.7f}; "
+    print(f"{what} routes: loss kernel={lk:.7f} dense={ld:.7f}; "
           f"dL/dproj max abs diff {g_err:.3e} (max {g_max:.3e})")
-    require(abs(lk - ld) <= 1e-4 * abs(ld), "kernel and dense losses differ")
-    require(g_err <= 1e-3 * g_max, "kernel and dense projection gradients differ")
+    require(abs(lk - ld) <= 1e-4 * abs(ld), f"{what}: kernel and dense losses differ")
+    require(g_err <= 1e-3 * g_max, f"{what}: kernel and dense projection gradients differ")
     return ref
 
 
@@ -526,8 +542,9 @@ def profile_steps(step, state, batch, n: int = PROFILED_STEPS) -> dict:
            "profile_float_add_ms": sum(e.self_device_time_total for e in mixed) / n / 1e3}
     # the port's kernels and their second passes, by source; the BN groups
     # match disjoint sets of kernels
-    for group, names in (("ntxent", ("ntxent_tile_kernel", "weighted_grad_kernel",
-                                     "sum_splits")),
+    for group, names in (("ntxent", ("ntxent_tile_kernel", "weighted_denom_kernel",
+                                     "plain_grad_kernel", "weighted_grad_kernel", "sum_splits")),
+                         *NTXENT_PROFILE_GROUPS.values(),
                          ("bn_epilogue", ("bn_ring_reduce", "bn_ring_dx", "bn_res_",
                                           "bn_sum_ctas")),
                          *BN_PROFILE_GROUPS.values(),
@@ -602,8 +619,6 @@ def in_turns(steps: dict, states: dict, batch, order) -> tuple[dict, dict]:
 
 def main_path(seed: int):
     """The simhand_w step at B = 256 pairs, as bench.py builds it."""
-    import torch
-
     from simhand_tpu_torch.losses import ntxent_kernels as K
     from simhand_tpu_torch.train import make_eval_step, make_train_step
 
@@ -642,14 +657,26 @@ def main_path(seed: int):
           f"pair, as bench.py counts; blocks {blocks})")
     perf.update(profile_steps(steps["kernel"], state, batch))
     # the loss's kernels a step: #2 and #4 over the 2 * PAIRS rows, each with
-    # its splits' sum pass when its planner splits the columns
-    rows, dev = 2 * PAIRS, torch.device("cuda")
-    want = (2 + (K._splits(rows, rows, dev) > 1)
-            + (K._grad_grid(rows, rows, dev)[0] > 1))
+    # its splits' sum pass when their planner splits the columns
+    want = 2 * ntxent_launches_a_step("weighted_grad_rows")
     require(perf["profile_ntxent_launches"] == want,
             f"the profile counts {perf['profile_ntxent_launches']} NT-Xent launches a "
             f"step, not {want} (#2, #4 and their sum passes)")
     return state, batch, launches, perf
+
+
+def ntxent_launches_a_step(name: str) -> int:
+    """Launches of NT-Xent kernel ``name`` over the step's 2 * PAIRS rows:
+    the kernel, and its splits' sum pass where its planner splits the
+    columns."""
+    import torch
+
+    from simhand_tpu_torch.losses import ntxent_kernels as K
+
+    rows, dev = 2 * PAIRS, torch.device("cuda")
+    splits = (K._tensor_core_grid(rows, rows, dev)[0] if name in K._TENSOR_CORE
+              else K._splits(rows, rows, dev))
+    return 1 + (splits > 1)
 
 
 # per element of each BN kernel: the (M, C) planes it reads and writes, its
@@ -2003,12 +2030,16 @@ def server_phase(forward) -> dict:
     return perf
 
 
-def plain_family(state, batch) -> dict:
-    """simhand-base steps through kernels #1 and #3."""
+def plain_family(state, batch) -> tuple[dict, dict]:
+    """simhand-base steps through kernels #1 and #3: step 0's loss and
+    dL/dprojections against the dense route on the same projections, the
+    launches, and a profile with #1's and #3's ms and launches a step."""
     from simhand_tpu_torch.losses import ntxent_kernels as K
     from simhand_tpu_torch.train import make_train_step
 
-    step = make_train_step(state.model, step_config(experiment_type="simhand-base"))
+    cfg = step_config(experiment_type="simhand-base")
+    compare_routes(state, batch, cfg, "plain family step 0")
+    step = make_train_step(state.model, cfg)
     K.reset_launches()
     losses = []
     for _ in range(PLAIN_STEPS):
@@ -2020,7 +2051,13 @@ def plain_family(state, batch) -> dict:
     require(launches["ntxent_denominator"] == PLAIN_STEPS
             and launches["ntxent_grad"] == PLAIN_STEPS,
             f"plain kernels did not launch on every step: {launches}")
-    return launches
+    perf = profile_steps(step, state, batch)
+    for name in ("ntxent_denominator", "ntxent_grad"):
+        group, want = NTXENT_PROFILE_GROUPS[name][0], ntxent_launches_a_step(name)
+        require(perf[f"profile_{group}_launches"] == want,
+                f"the plain family's profile counts {perf[f'profile_{group}_launches']} "
+                f"launches of {name} a step, not {want} (the kernel and its sum pass)")
+    return launches, perf
 
 
 def main() -> int:
@@ -2066,7 +2103,7 @@ def main() -> int:
     bn_launches, bn_perf = epilogue_path(args.seed, state, batch, perf["step0_loss"])
     fused_bn_launches, fused_bn_perf = fused_bn_path(args.seed, state, batch, perf["step0_loss"])
     conv_launches, conv_perf = conv1x1_path(args.seed, state, batch)
-    plain_launches = plain_family(state, batch)
+    plain_launches, plain_perf = plain_family(state, batch)
     del state
     f32_launches, f32_perf = conv1x1_f32_path(args.seed, batch)
     conv_launches.update(f32_launches)
@@ -2139,6 +2176,7 @@ def main() -> int:
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"step": perf, "epilogue_step": bn_perf, "fused_bn_step": fused_bn_perf,
                       "conv1x1_step": conv_perf, "conv1x1_f32_step": f32_perf,
+                      "plain_family_step": plain_perf,
                       "serving": serve_perf, "server": server_perf, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -25,14 +25,16 @@ from simhand_tpu_torch import native
 from simhand_tpu_torch.device import on_cpu
 
 D = 128          # projection width the kernels are built for
-_BM, _BN = 64, 64  # row block and column tile of #1-#3 in csrc/ntxent.cu
-_GBM, _GBN = 64, 32  # row block and column tile of #4 (weighted_grad_kernel)
+_BM, _BN = 64, 64  # row block and column tile of #1 in csrc/ntxent.cu
+_GBM, _GBN = 64, 32  # row block and column tile of the tensor-core kernels #2-#4
+# the kernels whose grid _tensor_core_grid plans (the others: _splits)
+_TENSOR_CORE = ("weighted_ntxent_denominator", "ntxent_grad", "weighted_grad_rows")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ntxent_denominator": [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P],
-    "weighted_ntxent_denominator": [_P] * 6 + [_I, _I, _F, _I, _P, _P, _P],
-    "ntxent_grad": [_P] * 5 + [_I, _I, _F, _I, _P, _P, _P],
+    "weighted_ntxent_denominator": [_P] * 6 + [_I, _I, _F, _I, _I, _P, _P, _P],
+    "ntxent_grad": [_P] * 5 + [_I, _I, _F, _I, _I, _P, _P, _P],
     "weighted_grad_rows": [_P] * 8 + [_I, _I, _F, _I, _I, _P, _P, _P],
 }
 
@@ -123,6 +125,12 @@ def _check_z(z_rows, z_cols) -> tuple[int, int]:
     return m, n
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its base is not 16-byte aligned: #2-#4 read
+    the columns' joints and 1/neg by bulk copies."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _minmax(d_max: torch.Tensor, d_min: torch.Tensor) -> torch.Tensor:
     _check(d_max, "d_max", ())
     _check(d_min, "d_min", ())
@@ -135,19 +143,20 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _splits(m: int, n: int, device: torch.device) -> int:
-    """Column splits of #1-#3's grid: enough for about two blocks per SM when
+    """Column splits of #1's grid: enough for about two blocks per SM when
     the row blocks alone are too few, but at most one per column tile (so 8
     x 8 = 64 blocks at 512 x 512). The partials are added in a second pass."""
     row_blocks = math.ceil(m / _BM)
     return max(1, min(math.ceil(n / _BN), math.ceil(2 * _sm_count(device) / row_blocks)))
 
 
-def _grad_grid(m: int, n: int, device: torch.device) -> tuple[int, int]:
-    """(splits, columns a split takes) of #4's grid (one CTA an SM): when its
-    row blocks are fewer than the SMs, as many splits of whole column tiles
-    as fill the SMs, none empty. The (splits, M, 128) float32 partials are
-    added in a second pass: 4 MiB at 512 x 512 and 512 x 16,384 (16 splits),
-    none at 16,384 x 16,384."""
+def _tensor_core_grid(m: int, n: int, device: torch.device) -> tuple[int, int]:
+    """(splits, columns a split takes) of the grid of the tensor-core kernels
+    #2-#4 (one CTA an SM): when their row blocks are fewer than the SMs, as
+    many splits of whole column tiles as fill the SMs, none empty. The
+    float32 partials, (splits, M) for #2 and (splits, M, 128) for #3/#4,
+    are added in a second pass: 16 splits at 512 x 512 and 512 x 16,384 (32
+    KiB for #2, 4 MiB for #3/#4), none at 16,384 x 16,384."""
     tiles = math.ceil(n / _GBN)
     want = max(1, min(tiles, _sm_count(device) // math.ceil(m / _GBM)))
     per = math.ceil(tiles / want)
@@ -156,8 +165,8 @@ def _grad_grid(m: int, n: int, device: torch.device) -> tuple[int, int]:
 
 def _launch(name: str, inputs: list, m: int, n: int, temperature: float,
             out: torch.Tensor) -> None:
-    if name == "weighted_grad_rows":
-        splits, cols = _grad_grid(m, n, out.device)
+    if name in _TENSOR_CORE:
+        splits, cols = _tensor_core_grid(m, n, out.device)
         grid = [splits, cols]
     else:
         splits = _splits(m, n, out.device)
@@ -208,6 +217,7 @@ def weighted_ntxent_denominator(z_rows, z_cols, j_rows, j_cols, row_ids,
     _check(row_ids, "row_ids", (m,), torch.int32)
     minmax = _minmax(d_max, d_min)
     out = z_rows.new_empty((m,))
+    j_cols = _aligned(j_cols)
     _launch("weighted_ntxent_denominator",
             [z_rows, z_cols, j_rows, j_cols, row_ids, minmax], m, n,
             temperature, out)
@@ -227,6 +237,7 @@ def ntxent_grad(z_rows, z_cols, inv_rows, inv_cols, row_ids,
     _check(inv_cols, "inv_cols", (n,))
     _check(row_ids, "row_ids", (m,), torch.int32)
     out = z_rows.new_empty((m, D))
+    inv_cols = _aligned(inv_cols)
     _launch("ntxent_grad", [z_rows, z_cols, inv_rows, inv_cols, row_ids], m, n,
             temperature, out)
     ntxent_grad.launches += 1
@@ -251,9 +262,7 @@ def weighted_grad_rows(z_rows, z_cols, j_rows, j_cols, inv_rows, inv_cols,
     _check(row_ids, "row_ids", (m,), torch.int32)
     minmax = _minmax(d_max, d_min)
     out = z_rows.new_empty((m, D))
-    # #4 reads the columns' joints and 1/neg by bulk copies from 16-byte
-    # aligned bases: a view elsewhere is copied
-    j_cols, inv_cols = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (j_cols, inv_cols))
+    j_cols, inv_cols = _aligned(j_cols), _aligned(inv_cols)
     _launch("weighted_grad_rows",
             [z_rows, z_cols, j_rows, j_cols, inv_rows, inv_cols, row_ids, minmax],
             m, n, temperature, out)

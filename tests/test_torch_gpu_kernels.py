@@ -78,19 +78,25 @@ def test_kernels_match_plain_versions(cuda, m, n, offset):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", ["weighted_ntxent_denominator", "ntxent_grad",
+                                  "weighted_grad_rows"])
 @pytest.mark.parametrize("m,n,offset", NTXENT_CASES, ids=NTXENT_IDS)
-def test_weighted_grad_rows_repeats_bit_for_bit(cuda, m, n, offset):
-    """#4 (three-pass TF32 products, column splits added in a fixed order):
-    a second launch gives the same bits, within the limit of the plain
-    version."""
-    args = tuple(a.contiguous() for a in _inputs(cuda, m, n, offset)["weighted_grad_rows"])
+def test_weighted_grad_rows_repeats_bit_for_bit(cuda, m, n, offset, name):
+    """The tensor-core kernels #2, #3 and #4 (three-pass TF32 products,
+    column splits added in a fixed order): a second launch gives the same
+    bits, within the limit of the plain version."""
+    args = tuple(a.contiguous() for a in _inputs(cuda, m, n, offset)[name])
+    kernel = getattr(K, name)
     K.reset_launches()
-    got, again = K.weighted_grad_rows(*args, T), K.weighted_grad_rows(*args, T)
-    want = K.weighted_grad_rows_plain(*args, T)
+    got, again = kernel(*args, T), kernel(*args, T)
+    want = getattr(K, f"{name}_plain")(*args, T)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
-    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
-    assert K.weighted_grad_rows.launches == 2
+    if "grad" in name:
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    assert kernel.launches == 2
 
 
 @pytest.mark.gpu

@@ -189,22 +189,28 @@ def test_contrastive_loss_from_projections_matches(etype, use_pallas):
 
 
 # --------------------------------------------------------------------------
-# kernel #4's grid and its three-pass TF32 products
+# the grid of the tensor-core kernels #2-#4 and their three-pass TF32 products
 # --------------------------------------------------------------------------
 
-# (M, N, splits, partial plane bytes) as the note of csrc/ntxent.cu states
-# them for an H100's 132 SMs
-GRAD_GRIDS = [(512, 512, 16, 4 * 2**20), (512, 16384, 16, 4 * 2**20),
-              (16384, 16384, 1, 0)]
+# (M, N, splits) as the note of csrc/ntxent.cu states them for an H100's 132
+# SMs; the partial plane holds splits x M floats for #2, splits x M x 128
+# for #3 and #4, and is not used with one split
+GRAD_GRIDS = [(512, 512, 16), (512, 16384, 16), (16384, 16384, 1)]
+PARTIAL_FLOATS_A_ROW = {"weighted_ntxent_denominator": 1, "ntxent_grad": K.D,
+                        "weighted_grad_rows": K.D}
+PARTIAL_BYTES = {("weighted_ntxent_denominator", 512): 32 * 2**10,
+                 ("ntxent_grad", 512): 4 * 2**20, ("weighted_grad_rows", 512): 4 * 2**20}
 
 
-@pytest.mark.parametrize("m,n,splits,partial_bytes", GRAD_GRIDS,
-                         ids=["512x512", "512x16384", "16384x16384"])
-def test_weighted_grad_grid_covers_every_column_tile_once(monkeypatch, m, n, splits,
-                                                          partial_bytes):
+@pytest.mark.parametrize("name", list(PARTIAL_FLOATS_A_ROW))
+@pytest.mark.parametrize("m,n,splits", GRAD_GRIDS, ids=["512x512", "512x16384", "16384x16384"])
+def test_weighted_grad_grid_covers_every_column_tile_once(monkeypatch, m, n, splits, name):
+    """The planner of #2, #3 and #4 (one CTA an SM)."""
     monkeypatch.setattr(K, "_sm_count", lambda device: 132)
-    got, cols = K._grad_grid(m, n, None)
-    assert (got, got * m * K.D * 4 if got > 1 else 0) == (splits, partial_bytes)
+    assert name in K._TENSOR_CORE
+    got, cols = K._tensor_core_grid(m, n, None)
+    partial_bytes = got * m * PARTIAL_FLOATS_A_ROW[name] * 4 if got > 1 else 0
+    assert (got, partial_bytes) == (splits, PARTIAL_BYTES.get((name, m), 0))
     assert cols % K._GBN == 0
     # split s takes the columns [s * cols, (s + 1) * cols) of N
     tiles = [tile for s in range(got)
@@ -239,22 +245,61 @@ def weighted_grad_tf32(zr, zc, jr, jc, inv_r, inv_c, ids, d_max, d_min, passes):
     return tf32_matmul(g, zc, passes)
 
 
-def test_three_tf32_passes_keep_the_gradient_within_its_limit():
-    """The kernel's products, emulated: three TF32 passes stay within the
-    card's limit for #4 (1e-5 of max|G|) of the float64 function at 512 rows
-    against 2,048 columns; one pass does not."""
+def weighted_denominator_tf32(zr, zc, jr, jc, inv_r, inv_c, ids, d_max, d_min, passes):
+    """weighted_ntxent_denominator_plain with its product through tf32_matmul."""
+    w = K._weights_plain(jr, jc, d_max, d_min)
+    s = torch.exp(tf32_matmul(zr, zc.T, passes) * w / T)
+    return torch.where(K._self_mask(ids, zc.shape[0]), 0.0, s).sum(dim=1)
+
+
+def plain_grad_tf32(zr, zc, jr, jc, inv_r, inv_c, ids, d_max, d_min, passes):
+    """ntxent_grad_plain with both products through tf32_matmul."""
+    g = torch.exp(tf32_matmul(zr, zc.T, passes) / T) * (inv_r[:, None] + inv_c[None, :])
+    g = torch.where(K._self_mask(ids, zc.shape[0]), 0.0, g)
+    return tf32_matmul(g, zc, passes)
+
+
+TF32_CASES = {
+    "weighted_grad_rows": (weighted_grad_tf32, ("z_rows", "z_cols", "j_rows", "j_cols",
+                                                "inv_rows", "inv_cols", "row_ids", "d_max",
+                                                "d_min")),
+    "weighted_ntxent_denominator": (weighted_denominator_tf32,
+                                    ("z_rows", "z_cols", "j_rows", "j_cols", "row_ids",
+                                     "d_max", "d_min")),
+    "ntxent_grad": (plain_grad_tf32, ("z_rows", "z_cols", "inv_rows", "inv_cols", "row_ids")),
+}
+
+
+@pytest.mark.parametrize("name", list(TF32_CASES))
+def test_three_tf32_passes_keep_the_gradient_within_its_limit(name):
+    """The kernels' products, emulated: three TF32 passes stay within the
+    card's limit of the float64 function at 512 rows against 2,048 columns,
+    one pass does not. The limits: 1e-5 of max|G| for the gradients #3 and
+    #4, rel 1e-5 for the denominator #2. A denominator sums positive terms,
+    so one pass's rounding of c averages out over the columns unless the
+    rows' own rounding errors do not: the projections here share a
+    direction, as an encoder's often do."""
     rng = np.random.default_rng(3)
     n, m = 2048, 512
-    zc = torch.from_numpy(normalize(rng.normal(size=(n, 128))))
+    z = rng.normal(size=(n, 128))
+    if name == "weighted_ntxent_denominator":
+        z = z + 2.0 * rng.normal(size=(1, 128))
+    zc = torch.from_numpy(normalize(z))
     jc = torch.from_numpy(rng.uniform(0, 128, (n, 21, 2)).astype(np.float32))
     ids = torch.arange(n, dtype=torch.int32)
     d = torch.cdist(jc.double().permute(1, 0, 2), jc.double().permute(1, 0, 2)).mean(0)
     d_max, d_min = d.max().float(), d.min().float()
     inv = (1.0 / K.ntxent_denominator_plain(zc.double(), zc.double(), ids, T)).float()
-    args = (zc[:m], zc, jc[:m], jc, inv[:m], inv, ids[:m])
-    want = K.weighted_grad_rows_plain(*(a.double() if a.is_floating_point() else a
-                                        for a in args), d_max.double(), d_min.double(), T)
-    limit = 1e-5 * float(want.abs().max())
-    errs = {p: float((weighted_grad_tf32(*args, d_max, d_min, p).double() - want).abs().max())
-            for p in (3, 1)}
+    args = (zc[:m], zc, jc[:m], jc, inv[:m], inv, ids[:m], d_max, d_min)
+    names = ("z_rows", "z_cols", "j_rows", "j_cols", "inv_rows", "inv_cols", "row_ids",
+             "d_max", "d_min")
+    emulate, keys = TF32_CASES[name]
+    want = getattr(K, f"{name}_plain")(*(a.double() if a.is_floating_point() else a
+                                          for k, a in zip(names, args) if k in keys), T)
+    got = {p: emulate(*args, p).double() for p in (3, 1)}
+    if name == "weighted_ntxent_denominator":
+        limit, errs = 1e-5, {p: float(((g - want) / want).abs().max()) for p, g in got.items()}
+    else:
+        limit = 1e-5 * float(want.abs().max())
+        errs = {p: float((g - want).abs().max()) for p, g in got.items()}
     assert errs[3] <= limit < errs[1], (errs, limit)
