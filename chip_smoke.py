@@ -9,7 +9,7 @@
    in float32 (TF32 off) at three shapes: the training step's 512 x 512, a
    512-row shard against 16384 columns, and 16384 x 16384 (8192 pairs, the
    paper's global batch on one card); denominators within rtol 1e-5,
-   gradients within 1e-5 * max|G|; #2-#4 (three-pass TF32 products on the
+   gradients within 1e-5 * max|G|; each (three-pass TF32 products on the
    tensor cores, column splits summed in a fixed order) also a second
    launch equal bit for bit; times each with CUDA events over back-to-back
    calls (host enqueue included) and with torch.profiler (the device time
@@ -247,7 +247,7 @@ MAIN_SHAPE = "512x512"
 # each NT-Xent kernel's profile group, (name, substrings of its kernels'
 # names): its main kernel and its own instance of the splits' sum pass
 NTXENT_PROFILE_GROUPS = {
-    "ntxent_denominator": ("ntxent_denominator", ("ntxent_tile_kernel", "sum_splits_kernel<1>")),
+    "ntxent_denominator": ("ntxent_denominator", ("plain_denom_kernel", "sum_splits_kernel<1>")),
     "weighted_ntxent_denominator": ("ntxent_weighted_denominator",
                                     ("weighted_denom_kernel", "sum_splits_kernel<2>")),
     "ntxent_grad": ("ntxent_grad", ("plain_grad_kernel", "sum_splits_kernel<3>")),
@@ -428,14 +428,13 @@ def kernel_phase(seed: int) -> dict:
             row = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by, "bound_unit": unit,
                    "bound_share": bound_ms / dev_ms}
-            if name in K._TENSOR_CORE:
-                # the column splits' sum has a fixed order
-                again = kernel(*a)
-                torch.cuda.synchronize()
-                row["second_launch_bit_equal"] = bool(torch.equal(got, again))
-                require(row["second_launch_bit_equal"],
-                        f"{name} {label}: a second launch gave other bits")
-                del again
+            # the column splits' sum has a fixed order
+            again = kernel(*a)
+            torch.cuda.synchronize()
+            row["second_launch_bit_equal"] = bool(torch.equal(got, again))
+            require(row["second_launch_bit_equal"],
+                    f"{name} {label}: a second launch gave other bits")
+            del again
             report[name][label] = row
             print(f"kernel {name} {label}: max_abs_err={err:.3e} ms={ms:.4f} "
                   f"device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} "
@@ -542,7 +541,7 @@ def profile_steps(step, state, batch, n: int = PROFILED_STEPS) -> dict:
            "profile_float_add_ms": sum(e.self_device_time_total for e in mixed) / n / 1e3}
     # the port's kernels and their second passes, by source; the BN groups
     # match disjoint sets of kernels
-    for group, names in (("ntxent", ("ntxent_tile_kernel", "weighted_denom_kernel",
+    for group, names in (("ntxent", ("plain_denom_kernel", "weighted_denom_kernel",
                                      "plain_grad_kernel", "weighted_grad_kernel", "sum_splits")),
                          *NTXENT_PROFILE_GROUPS.values(),
                          ("bn_epilogue", ("bn_ring_reduce", "bn_ring_dx", "bn_res_",
@@ -673,9 +672,8 @@ def ntxent_launches_a_step(name: str) -> int:
 
     from simhand_tpu_torch.losses import ntxent_kernels as K
 
-    rows, dev = 2 * PAIRS, torch.device("cuda")
-    splits = (K._tensor_core_grid(rows, rows, dev)[0] if name in K._TENSOR_CORE
-              else K._splits(rows, rows, dev))
+    rows = 2 * PAIRS
+    splits, _ = K._tensor_core_grid(rows, rows, torch.device("cuda"), K._TILE[name])
     return 1 + (splits > 1)
 
 

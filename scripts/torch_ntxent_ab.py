@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Times variants of the tensor-core NT-Xent kernels #2 and #3 of the
+"""Times variants of the tensor-core NT-Xent kernels #1, #2 and #3 of the
 PyTorch port (``csrc/ntxent.cu``) against the source as it stands, in turns
 on one card.
 
-    python3 scripts/torch_ntxent_ab.py [--other label=path/to/ntxent.cu ...] [--seed 0]
+    python3 scripts/torch_ntxent_ab.py [--variants name ...] [--rounds 1] [--seed 0] \
+        [--other label=path/to/ntxent.cu ...]
 
-Each variant in ``VARIANTS`` is a textual edit of ``csrc/ntxent.cu``; each
-other source must have the same C entry points for #2 and #3. The source,
-the others and every variant are built at once with the port's nvcc flags
-into ``build/ab/``, and each one's ptxas registers and spills for #2
+Each variant in ``VARIANTS`` (all of them unless ``--variants`` names some)
+is a textual edit of ``csrc/ntxent.cu``; each other source must have the
+same C entry points for #2 and #3, and for #1 either today's or the one
+before #1 took the tensor-core grid (no ``cols_per_split``; its grid is
+then planned as that source's wrapper planned it). The source, the others
+and the variants are built at once with the port's nvcc flags into
+``build/ab/``, and each one's ptxas registers and spills for #1
+(``plain_denom_kernel``, or the earlier ``ntxent_tile_kernel``), #2
 (``weighted_denom_kernel``) and #3 (``plain_grad_kernel``) are printed. At
-each shape of ``chip_smoke.SHAPES``, every version of #2 and #3 is held
+each shape of ``chip_smoke.SHAPES``, every version of #1-#3 is held
 against its plain version (rel 1e-5; 1e-5 of max|G|) with a second launch
 bit-equal; then the device time of each (torch.profiler, kernel and sum
 pass) in the order kept, variants, variants reversed, kept, ``--rounds``
@@ -21,6 +26,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import re
 import subprocess
 import sys
@@ -34,8 +40,12 @@ import chip_smoke  # noqa: E402
 from simhand_tpu_torch import native  # noqa: E402
 from simhand_tpu_torch.losses import ntxent_kernels as K  # noqa: E402
 
-KERNELS = {"weighted_ntxent_denominator": "weighted_denom_kernel",
-           "ntxent_grad": "plain_grad_kernel"}
+KERNELS = {"ntxent_denominator": ("plain_denom_kernel", "ntxent_tile_kernel"),
+           "weighted_ntxent_denominator": ("weighted_denom_kernel",),
+           "ntxent_grad": ("plain_grad_kernel",)}
+# #1's tile width in a source, and its entry point before it took cols_per_split
+DBN = re.compile(r"constexpr int DBN = (\d+);")
+OLD_DENOMINATOR = "int splits, void* partial, void* out, void* stream) {\n  if (M <= 0"
 
 # #3's P z_c with both halves of 64 features in flight at once
 BOTH_HALVES = """    {
@@ -89,6 +99,8 @@ HELPER_MAP = "    const int h = tid - MMA_THREADS, jb = h / (D / 4), db = h % (D
 
 
 VARIANTS = {
+    # #1 on 32-column tiles (#2's m64n32k8 product) where it takes 64
+    "tile32": lambda s: s.replace("constexpr int DBN = 64;", "constexpr int DBN = 32;"),
     # #2's product in three chains of wgmma, one a TF32 pass (#3's)
     "three_chains": lambda s: s.replace("product_rows_cols<1>(", "product_rows_cols<3>("),
     # #3's product in one chain (#2's)
@@ -110,7 +122,7 @@ VARIANTS = {
 
 def build(label: str, text: str) -> tuple[ctypes.CDLL, str]:
     """Builds one version of the source; returns it loaded, and its ptxas
-    registers and spills for #2 and #3."""
+    registers and spills for #1-#3."""
     out_dir = native.BUILD_DIR / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     src = out_dir / f"ntxent_{label}.cu"
@@ -119,9 +131,10 @@ def build(label: str, text: str) -> tuple[ctypes.CDLL, str]:
     res = subprocess.run([native._nvcc(), *native.NVCC_FLAGS, "-I", str(native.CSRC), "-o",
                           str(lib_path), str(src)], capture_output=True, text=True, check=True)
     report = []
-    for kernel in KERNELS.values():
-        block = res.stdout + res.stderr
-        at = block.index(f"{kernel}E")
+    block = res.stdout + res.stderr
+    for kernels in KERNELS.values():
+        kernel, at = next((k, m.start()) for k in kernels
+                          for m in [re.search(rf"{k}[EI]", block)] if m)
         regs = re.search(r"Used (\d+) registers", block[at:]).group(1)
         spill = re.search(r"(\d+) bytes spill stores", block[at:]).group(1)
         report.append(f"{kernel} {regs} registers, {spill} bytes spilled")
@@ -131,26 +144,47 @@ def build(label: str, text: str) -> tuple[ctypes.CDLL, str]:
     for name in KERNELS:
         getattr(lib, name).argtypes = K._SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
+    if OLD_DENOMINATOR in text:        # no cols_per_split
+        lib.ntxent_denominator.argtypes = K._SIGNATURES["ntxent_denominator"][:7] + [
+            ctypes.c_void_p] * 3
     return lib, "; ".join(report)
 
 
-def caller(lib: ctypes.CDLL, name: str):
-    """The wrapper's arguments -> its kernel's output, through lib."""
+def old_denominator_splits(m: int, n: int, device) -> int:
+    """Column splits of #1's grid before it took the tensor-core grid:
+    enough for about two 64-row blocks an SM, at most one a 64-column tile."""
+    return max(1, min(math.ceil(n / 64), math.ceil(2 * K._sm_count(device) / math.ceil(m / 64))))
+
+
+def caller(lib: ctypes.CDLL, name: str, text: str):
+    """The wrapper's arguments -> its kernel's output, through lib built
+    from the source ``text``."""
     import torch
+
+    tile = K._TILE[name]
+    if name == "ntxent_denominator" and OLD_DENOMINATOR not in text:
+        tile = int(DBN.search(text).group(1))
 
     def call(*a):
         m, n, temperature = a[0].shape[0], a[1].shape[0], a[-1]
-        if name == "ntxent_grad":
+        if name == "ntxent_denominator":
+            inputs, out = list(a[:3]), a[0].new_empty((m,))
+        elif name == "ntxent_grad":
             inputs, out = list(a[:5]), a[0].new_empty((m, K.D))
         else:
             z_rows, z_cols, j_rows, j_cols, row_ids, d_max, d_min, _ = a
             inputs = [z_rows, z_cols, j_rows.reshape(m, 42), j_cols.reshape(n, 42), row_ids,
                       torch.stack([d_max, d_min])]
             out = a[0].new_empty((m,))
-        splits, cols = K._tensor_core_grid(m, n, out.device)
+        if name == "ntxent_denominator" and OLD_DENOMINATOR in text:
+            splits = old_denominator_splits(m, n, out.device)
+            grid = [splits]
+        else:
+            splits, cols = K._tensor_core_grid(m, n, out.device, tile)
+            grid = [splits, cols]
         partial = out if splits == 1 else out.new_empty((splits, *out.shape))
         err = getattr(lib, name)(*[t.data_ptr() for t in inputs], m, n, float(temperature),
-                                 splits, cols, partial.data_ptr(), out.data_ptr(),
+                                 *grid, partial.data_ptr(), out.data_ptr(),
                                  torch.cuda.current_stream().cuda_stream)
         chip_smoke.require(err == 0, f"{name}: CUDA error {err}")
         return out
@@ -161,6 +195,7 @@ def caller(lib: ctypes.CDLL, name: str):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--other", action="append", default=[], metavar="label=path")
+    parser.add_argument("--variants", nargs="*", choices=list(VARIANTS), default=list(VARIANTS))
     parser.add_argument("--rounds", type=int, default=1,
                         help="times each version is timed in each direction of the order")
     parser.add_argument("--seed", type=int, default=0)
@@ -174,7 +209,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     source = (native.CSRC / "ntxent.cu").read_text()
-    texts = {"kept": source, **{k: edit(source) for k, edit in VARIANTS.items()}}
+    texts = {"kept": source, **{k: VARIANTS[k](source) for k in args.variants}}
     for label, text in texts.items():
         chip_smoke.require(label == "kept" or text != source, f"variant {label} changed nothing")
     for spec in args.other:
@@ -198,13 +233,14 @@ def main() -> int:
         inv_cols = 1.0 / K.ntxent_denominator_plain(z_cols, z_cols, col_ids, 0.5)
         inv_rows = inv_cols[offset:offset + m].contiguous()
         inputs = {
+            "ntxent_denominator": (z_rows, z_cols, row_ids, 0.5),
             "weighted_ntxent_denominator": (z_rows, z_cols, j_rows, j_cols, row_ids, d_max, d_min,
                                             0.5),
             "ntxent_grad": (z_rows, z_cols, inv_rows, inv_cols, row_ids, 0.5),
         }
         for name, a in inputs.items():
             want = getattr(K, f"{name}_plain")(*a)
-            calls = {k: caller(lib, name) for k, (lib, _) in built.items()}
+            calls = {k: caller(lib, name, texts[k]) for k, (lib, _) in built.items()}
             for k, call in calls.items():
                 got, again = call(*a), call(*a)
                 torch.cuda.synchronize()

@@ -16,34 +16,37 @@
 // and w_ij = (d_max - d_ij) / (d_max - d_min); d_max and d_min are read
 // from device memory, so the caller never synchronises for them.
 //
-// #1 (ntxent_tile_kernel), the port's first design: float32 arithmetic on
-// the CUDA cores bounds it (2*M*N*128 flops of dot products, 68.7 GFLOP at M = N =
-// 16384; at the step's 512 x 512, launch latency). The Pallas grid walked its
-// column axis in order and carried the row sums in VMEM scratch. Here a
-// block owns BM = 64 rows, keeps them in shared memory, and loops over column
-// tiles of BN = 64 itself: the (64 x 64) similarity tile is computed by 256
-// threads, 4 x 4 pairs each, and the row sums stay in registers. When the
-// row blocks alone would leave SMs idle, the columns are split over
-// gridDim.y; each split writes its own partial and a second small kernel
-// adds the partials in a fixed order, so every sum is deterministic (no
-// atomics). Ragged edges are masked, so any M and N work.
-//
-// #2-#4 (weighted_denom_kernel, plain_grad_kernel, weighted_grad_kernel),
-// designed for Hopper. Their products, c = z_r z_c^T and for the gradients
-// G += P z_c, run on the tensor cores (wgmma) in three TF32 passes: each
-// operand is split as a = hi + lo with hi = tf32(a) and lo = tf32(a - hi),
-// both rounded to nearest (ties away), and the float32 sums take lo*hi,
-// hi*lo, then hi*hi. That keeps a product to about 2^-22 of |a||b| (one
-// TF32 pass: 2^-11, which breaks the gradients' 1e-5 * max|G| limit and the
-// denominator's rel 1e-5 where the rows' rounding does not average out), at
-// a third of the 495 TFLOP/s TF32 rate. Arithmetic otherwise follows the
-// Pallas kernels: float32 throughout, the distance sum before the *(1/21),
-// the self mask by global id; ragged edges are masked.
+// All four are designed for Hopper (plain_denom_kernel<DBN>,
+// weighted_denom_kernel, plain_grad_kernel, weighted_grad_kernel). Their
+// products, c = z_r z_c^T and for the gradients G += P z_c, run on the
+// tensor cores (wgmma) in three TF32 passes: each operand is split as a =
+// hi + lo with hi = tf32(a) and lo = tf32(a - hi), both rounded to nearest
+// (ties away), and the float32 sums take lo*hi, hi*lo, then hi*hi. That
+// keeps a product to about 2^-22 of |a||b| (one TF32 pass: 2^-11, which
+// breaks the gradients' 1e-5 * max|G| limit and the denominators' rel 1e-5
+// where the rows' rounding does not average out), at a third of the 495
+// TFLOP/s TF32 rate. Arithmetic otherwise follows the Pallas kernels:
+// float32 throughout, the distance sum before the *(1/21), the self mask by
+// global id; ragged edges are masked. The Pallas grid walked its column
+// axis in order and carried the row sums in VMEM scratch; here a CTA walks
+// its column tiles itself and keeps its rows' sums in registers.
+// - #1 and #3 have no distances: their tensor-core warpgroup's chain a tile
+//   bounds them (see #3's note). #1 is #2 without the joints, the distances
+//   and the w plane: the product in three chains of wgmma, one a TF32 pass
+//   (as #3's), then exp(c * (1 / T)) and the rows' sums on the warpgroup's
+//   accumulator, while the helpers split the next tile. Every operand of a
+//   wgmma step comes from shared memory (64 x 8 of A, TN x 8 of B), so the
+//   tile's width sets how much is read a product: DBN = 64 columns
+//   (m64n64k8, 4 KB a step for 32,768 multiply-adds) where #2's 32 reads 3
+//   KB for half as many. On an H100 (PERF.md, PR 11) the 64-column tile
+//   takes 0.0529 and 1.509 ms at 512 x 16,384 and 16,384 x 16,384 against
+//   the 32-column one's 0.0676 and 1.855, and is kept; the 32-column tile
+//   is faster only at 512 x 512 (0.0064 against 0.0077 ms), where 64
+//   columns fill 64 SMs instead of 128.
 // - What is left on the CUDA cores bounds #2 and #4: the 21 joint distances
 //   a pair (subtract, square, add, a square root, add), the weight, exp and
 //   the self mask, about 230 instructions a pair against the products'
-//   768 (#2) or 1,536 (#4) tensor-core flops. #3 has no distances: its
-//   tensor-core warpgroup's chain a tile bounds it (see its note).
+//   768 (#2) or 1,536 (#4) tensor-core flops.
 // - The square root is sqrt.approx (one MUFU operation, within about an
 //   ulp): __fsqrt_rn's slow-path branch kept a thread's pairs from
 //   interleaving. The weights then differ from the plain version's in their
@@ -53,20 +56,22 @@
 //   P z_c starts from 0 there and is added to the row's G in registers by
 //   round-to-nearest float32 adds; #2's row sums are kept the same way.
 // - A CTA owns 64 rows and the column tiles of one split, 32 columns a
-//   tile. Its rows' hi and lo planes stay in shared memory for the whole
-//   walk, the A operand of the first product.
-// - Twelve warps, 168 registers each (the register file; a thirteenth
-//   warp would round the allocation up to sixteen and cut it to 128, with
-//   spills). Warps 0-3, the tensor-core warpgroup, run the products and
-//   work on their accumulator: exp(c w / T) and the rows' sums (#2), P =
+//   tile (#1: 64). Its rows' hi and lo planes stay in shared memory for the
+//   whole walk, the A operand of the first product.
+// - Twelve warps, 168 registers each (#1: 136; the register file; a
+//   thirteenth warp would round the allocation up to sixteen and cut it to
+//   128, with spills). Warps 0-3, the tensor-core warpgroup, run the
+//   products and work on their accumulator: exp(c / T) and the rows' sums
+//   (#1), exp(c w / T) and the rows' sums (#2), P =
 //   exp(c / T) (inv_i + inv_j) (#3), P = exp(c w / T) w (inv_i + inv_j)
 //   (#4), and G (#3, #4). Warps 4-11, the helpers, split z_c into its
 //   operands and (#2, #4) compute the tile's distances and weights (8 pairs
 //   a thread, the row's joints in registers) into a double-buffered w
-//   plane. Thread 0 keeps three stages of raw column tiles (z_c rows and
-//   their joints and/or 1/neg) arriving through 1-D bulk copies, two tiles
-//   ahead; a copy's ragged tail of fewer than 16 bytes goes by plain stores
-//   before the stage's barrier is posted. Stages, w buffers and operand
+//   plane. Thread 0 keeps three stages of raw column tiles (z_c rows, and
+//   for #2-#4 their joints and/or 1/neg) arriving through 1-D bulk copies,
+//   two tiles ahead; a copy's ragged tail of fewer than 16 bytes goes by
+//   plain stores before the stage's barrier is posted (#1 copies whole
+//   rows of 512 bytes: it has none). Stages, w buffers and operand
 //   planes are handed over by mbarriers; no wgmma is left in flight across
 //   a pass of the loop (one that is makes ptxas serialise them all).
 // - The helpers split z_c into hi and lo as rows of 128 (K = the feature,
@@ -83,12 +88,14 @@
 // - Shared memory: #4 rows 64 KB, the split column tile 64 KB, P 16 KB, w
 //   16 KB, three 21.4 KB stages: 225 KB. #2 rows 64, the tile's row planes
 //   32, w 16, three 21.25 KB stages: 177 KB. #3 rows 64, the tile 64, three
-//   16.1 KB stages: 177 KB. One CTA an SM.
+//   16.1 KB stages: 177 KB. #1 rows 64, the tile's row planes 64, three 32
+//   KB stages: 225 KB. One CTA an SM.
 // - Splits: when the row blocks are fewer than the SMs the columns are cut
 //   into as many splits as fill them (the wrapper's _tensor_core_grid: 16
-//   of 512 columns at 512 x 512 and of 1,024 at 512 x 16,384; none at
-//   16,384 x 16,384); the partial plane holds 32 KiB for #2 and 4 MiB for
-//   #3/#4 there. The splits' partials are added in their order by
+//   of 32 columns at 512 x 512 and of 1,024 at 512 x 16,384 for #2-#4, 8
+//   of 64 and 16 of 1,024 for #1; none at 16,384 x 16,384); the partial
+//   plane holds 16 and 32 KiB for #1, 32 KiB for #2 and 4 MiB for #3/#4
+//   there. The splits' partials are added in their order by
 //   sum_splits_kernel<K>, one instance a kernel: a second launch gives the
 //   same bits.
 
@@ -101,108 +108,8 @@
 namespace {
 
 constexpr int D = 128;           // projection width
-constexpr int BM = 64;           // rows a block of #1 owns
-constexpr int BN = 64;           // columns of one of its tiles
-constexpr int THREADS = 256;     // 16 x 16 threads, 4 x 4 pairs each
-constexpr int ZS = D + 1;        // padded shared-memory row stride of a z tile
-constexpr int TILE_SMEM = sizeof(float) * (BM + BN) * ZS;
 constexpr int NJ = 21;           // joints
 constexpr int JW = 2 * NJ;       // interleaved [x0, y0, x1, y1, ...]
-
-// (BM or BN) x 128 floats from rows [start, limit) of src into a padded tile;
-// rows past limit are zero.
-template <int ROWS>
-__device__ void load_z(float* dst, const float* __restrict__ src, int start,
-                       int limit) {
-  constexpr int V = D / 4;
-  for (int idx = threadIdx.x; idx < ROWS * V; idx += THREADS) {
-    const int r = idx / V, c4 = idx % V;
-    const int g = start + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (g < limit) v = reinterpret_cast<const float4*>(src + (size_t)g * D)[c4];
-    float* d = dst + r * ZS + 4 * c4;
-    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
-  }
-}
-
-// #1, one block: rows [blockIdx.x*BM, +BM) against the columns of split
-// blockIdx.y; dst is (splits, M).
-__global__ void __launch_bounds__(THREADS)
-ntxent_tile_kernel(const float* __restrict__ z_rows,
-                   const float* __restrict__ z_cols,
-                   const int* __restrict__ row_ids, int M, int N,
-                   float temperature, int cols_per_split,
-                   float* __restrict__ dst) {
-  extern __shared__ float smem[];
-  float* zr = smem;
-  float* zc = zr + BM * ZS;
-
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int row0 = blockIdx.x * BM;
-  const int col_begin = blockIdx.y * cols_per_split;
-  const int col_end = min(N, col_begin + cols_per_split);
-
-  load_z<BM>(zr, z_rows, row0, M);
-  int rid[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    rid[i] = r < M ? row_ids[r] : -1;       // global ids are >= 0
-  }
-
-  float rowsum[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int c0 = col_begin; c0 < col_end; c0 += BN) {
-    __syncthreads();                         // the previous tile is consumed
-    load_z<BN>(zc, z_cols, c0, col_end);
-    __syncthreads();
-
-    float cov[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) cov[i][j] = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < D; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = zr[(ty + 16 * i) * ZS + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = zc[(tx + 16 * j) * ZS + k];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) cov[i][j] = fmaf(a[i], b[j], cov[i][j]);
-    }
-
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      const bool valid = c < col_end;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float v = 0.f;
-        if (valid && c != rid[i]) v = expf(__fdiv_rn(cov[i][j], temperature));
-        rowsum[i] += v;
-      }
-    }
-  }
-
-  // the 16 threads that share a row are 16 neighbouring lanes of a warp
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      rowsum[i] += __shfl_xor_sync(0xffffffffu, rowsum[i], off);
-  if (tx == 0) {
-    float* out = dst + (size_t)blockIdx.y * M;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + ty + 16 * i;
-      if (r < M) out[r] = rowsum[i];
-    }
-  }
-}
 
 // out[i] = sum over splits s, in order, of partial[s * count + i]; one
 // instance for each kernel #K, so that a profile tells the sum passes apart
@@ -1075,6 +982,202 @@ plain_grad_kernel(const float* __restrict__ z_rows, const float* __restrict__ z_
   }
 }
 
+// ---- #1 on Hopper: plain_denom_kernel --------------------------------------
+//
+// #2's kernel without the joints, the distances and the w plane: the rows'
+// planes at #4's offsets (ZR_HI, ZR_LO), the tile's row planes after them,
+// then the ring of raw tiles, z_c rows alone. A tile has TN columns (DBN
+// is the width the entry point takes; see the note at the top).
+constexpr int DBN = 64;
+template <int TN>
+struct DenomLayout {
+  static constexpr int ZC_HI = 65536, ZC_LO = ZC_HI + TN * D * 4;
+  static constexpr int STAGE0 = ZC_LO + TN * D * 4;
+  static constexpr int STAGE_BYTES = TN * D * 4;
+  static constexpr int BARS = STAGE0 + GSTAGES * STAGE_BYTES;
+  // full[3], empty[3], zc_ready, zc_free; and the base's alignment
+  static constexpr int SMEM = BARS + 8 * (2 * GSTAGES + 2) + 1024;
+  static_assert(SMEM <= 232448, "one CTA an SM");
+};
+
+// d (+)= a b, 64 x 8 of A against TN x 8 of B
+template <int TN>
+__device__ __forceinline__ void mma_cols(float (&d)[TN / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (TN == 32)
+    mma_n32(d, a, b, scale_d);
+  else
+    mma_n64(d, a, b, scale_d);
+}
+
+// c = z_r z_c^T for the warpgroup's 64 rows against a tile's TN columns:
+// lo*hi, hi*lo and hi*hi, each pass a chain of 16 K-steps into its own
+// accumulator, waited for before it returns; then (lo*hi + hi*lo) + hi*hi,
+// as product_rows_cols<3> adds them
+template <int TN>
+__device__ __forceinline__ void denom_product(float (&cov)[TN / 2], uint32_t base) {
+  using L = DenomLayout<TN>;
+  float a[TN / 2], b[TN / 2];
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) cov[i] = a[i] = b[i] = 0.f;
+  fence_regs(cov);
+  fence_regs(a);
+  fence_regs(b);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    const uint32_t ka = (ks / 4) * GBM * 128 + (ks % 4) * 32;
+    const uint32_t kb = (ks / 4) * TN * 128 + (ks % 4) * 32;
+    mma_cols<TN>(a, smem_desc(base + ZR_LO + ka), smem_desc(base + L::ZC_HI + kb), ks > 0);
+    mma_cols<TN>(b, smem_desc(base + ZR_HI + ka), smem_desc(base + L::ZC_LO + kb), ks > 0);
+    mma_cols<TN>(cov, smem_desc(base + ZR_HI + ka), smem_desc(base + L::ZC_HI + kb), ks > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(cov);
+  fence_regs(a);
+  fence_regs(b);
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) cov[i] = __fadd_rn(__fadd_rn(a[i], b[i]), cov[i]);
+}
+
+// One CTA: rows [blockIdx.x * GBM, +GBM) against the columns [blockIdx.y *
+// cols_per_split, +cols_per_split) of N; dst is (splits, M).
+template <int TN>
+__global__ void __launch_bounds__(GTHREADS, 1)
+plain_denom_kernel(const float* __restrict__ z_rows, const float* __restrict__ z_cols,
+                   const int* __restrict__ row_ids, int M, int N, float temperature,
+                   int cols_per_split, float* __restrict__ dst) {
+  using L = DenomLayout<TN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t base = smem_u32(sm);
+  const uint32_t full0 = base + L::BARS, empty0 = full0 + 8 * GSTAGES;
+  const uint32_t zc_ready = empty0 + 8 * GSTAGES, zc_free = zc_ready + 8;
+  const int row0 = (int)blockIdx.x * GBM;
+  const int col_begin = (int)blockIdx.y * cols_per_split;
+  const int col_end = min(N, col_begin + cols_per_split);
+  const int tiles = (col_end - col_begin + TN - 1) / TN;
+  const int tid = (int)threadIdx.x, lane = tid % 32;
+
+  if (tid == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, HELPERS / 32);      // only the helpers read a stage
+    }
+    mbar_init(zc_ready, HELPERS / 32);
+    mbar_init(zc_free, MMA_THREADS / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 copies tile k's z_c rows into its stage: whole rows of 512
+  // bytes, so no ragged tail
+  const auto load_tile = [&](int k) {
+    const int s = k % GSTAGES;
+    if (k >= GSTAGES) mbar_wait(empty0 + 8 * s, (k / GSTAGES - 1) & 1);
+    const int c0 = col_begin + k * TN, n = min(TN, col_end - c0);
+    const uint32_t bar = full0 + 8 * s;
+    mbar_expect_tx(bar, (uint32_t)n * D * 4);
+    bulk_load(base + L::STAGE0 + s * L::STAGE_BYTES, z_cols + (size_t)c0 * D, n * D * 4, bar);
+  };
+  if (tid == 0)
+    for (int k = 0; k < min(tiles, GSTAGES - 1); ++k) load_tile(k);
+  split_rows(sm, z_rows, row0, M);
+  fence_async_smem();
+  named_sync(1, GTHREADS);
+
+  if (tid >= MMA_THREADS) {
+    // ---- the helpers: rows E jb + e (e < E) of each tile, feature chunk db,
+    // into hi and lo; rows past the tile's end are zero ----
+    constexpr int E = TN * (D / 4) / HELPERS;
+    const int h = tid - MMA_THREADS, jb = h / (D / 4), db = h % (D / 4);
+    for (int k = 0; k < tiles; ++k) {
+      const int s = k % GSTAGES;
+      const uint8_t* st = sm + L::STAGE0 + s * L::STAGE_BYTES;
+      const int n = min(TN, col_end - (col_begin + k * TN));
+      mbar_wait(full0 + 8 * s, (k / GSTAGES) & 1);
+      float4 hi[E], lo[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int j = E * jb + e;
+        const float4 v = j < n ? *reinterpret_cast<const float4*>(st + j * D * 4 + db * 16)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+        split4(v, hi[e], lo[e]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);   // the raw tile is in registers
+
+      if (k >= 1) mbar_wait(zc_free, (k - 1) & 1);    // c of tile k - 1 is done
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        *reinterpret_cast<float4*>(sm + L::ZC_HI + swz(E * jb + e, db, TN)) = hi[e];
+        *reinterpret_cast<float4*>(sm + L::ZC_LO + swz(E * jb + e, db, TN)) = lo[e];
+      }
+      fence_async_smem();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(zc_ready);
+    }
+    return;
+  }
+
+  // ---- the tensor-core warpgroup: rows ra, rb; columns 8q + 2t + e ----
+  const int warp = tid / 32, gq = lane / 4, t = lane % 4;
+  const int ra = 16 * warp + gq, rb = ra + 8;
+  const float inv_t = __frcp_rn(temperature);   // exp(c * (1 / T)): within an ulp of c / T
+  int rid[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row0 + (hh ? rb : ra);
+    rid[hh] = r < M ? row_ids[r] : -1;      // global ids are >= 0
+  }
+  // each row's sum as #2's: a tile's terms in registers, then
+  // round-to-nearest adds tile after tile; the quad's four sums at the end
+  float sum[2] = {0.f, 0.f};
+  for (int k = 0; k < tiles; ++k) {
+    const int c0 = col_begin + k * TN, n = min(TN, col_end - c0);
+    // two tiles ahead, into the stage tile k - 1 has left
+    if (tid == 0 && k + GSTAGES - 1 < tiles) load_tile(k + GSTAGES - 1);
+    __syncwarp();                 // warp 0 whole again before the .aligned wgmma
+
+    mbar_wait(zc_ready, k & 1);
+    float cov[TN / 2];
+    denom_product<TN>(cov, base);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(zc_free);              // the planes may be overwritten
+
+    // exp(c / T), 0 on the self pair and past the end
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int q = 0; q < TN / 8; ++q)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * q + 2 * hh + e, j = 8 * q + 2 * t + e;
+          const float ex = expf(__fmul_rn(cov[i], inv_t));
+          if (j < n && c0 + j != rid[hh]) part[hh] = __fadd_rn(part[hh], ex);
+        }
+    sum[0] = __fadd_rn(sum[0], part[0]);
+    sum[1] = __fadd_rn(sum[1], part[1]);
+  }
+
+  // the four lanes of a row (t = 0..3) in a fixed order
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    sum[hh] = __fadd_rn(sum[hh], __shfl_xor_sync(0xffffffffu, sum[hh], 1));
+    sum[hh] = __fadd_rn(sum[hh], __shfl_xor_sync(0xffffffffu, sum[hh], 2));
+  }
+  if (t == 0) {
+    float* out = dst + (size_t)blockIdx.y * M;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row0 + (hh ? rb : ra);
+      if (r < M) out[r] = sum[hh];
+    }
+  }
+}
+
 #undef D16
 #undef REGS16
 
@@ -1103,11 +1206,12 @@ int with_splits(int splits, int64_t count, void* partial, void* out, cudaStream_
   return (int)cudaGetLastError();
 }
 
-// #2-#4's grid: split s of the splits takes the columns [s * cols_per_split,
-// (s + 1) * cols_per_split), a multiple of 32, and the splits cover the N
-// columns exactly
-bool bad_split_grid(int M, int N, int splits, int cols_per_split) {
-  return M <= 0 || N <= 0 || splits <= 0 || cols_per_split <= 0 || cols_per_split % GBN != 0 ||
+// the tensor-core kernels' grid: split s of the splits takes the columns
+// [s * cols_per_split, (s + 1) * cols_per_split), a multiple of the
+// kernel's tile (32 columns; #1's DBN), and the splits cover the N columns
+// exactly
+bool bad_split_grid(int M, int N, int splits, int cols_per_split, int tile = GBN) {
+  return M <= 0 || N <= 0 || splits <= 0 || cols_per_split <= 0 || cols_per_split % tile != 0 ||
          (long long)cols_per_split * splits < N || (long long)cols_per_split * (splits - 1) >= N ||
          splits > 65535;
 }
@@ -1129,20 +1233,21 @@ extern "C" {
 // splits * M * 128 (gradients) floats and is unused when splits == 1.
 
 // Replaces _ntxent_denom_kernel (pallas_ntxent.py:46-72, called at :88).
-// float32 FMA-bound at large N (2*128 flops per pair). At the step's
-// 512 x 512 the column split gives 8 x 8 = 64 blocks, fewer than the SMs.
-int ntxent_denominator(const void* z_rows, const void* z_cols,
-                       const void* row_ids, int M, int N, float temperature,
-                       int splits, void* partial, void* out, void* stream) {
-  if (M <= 0 || N <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
+// The product on the tensor cores in three TF32 passes (see the note
+// above). The grid as weighted_grad_rows', with tiles of DBN columns;
+// z_rows and z_cols are 16-byte aligned (float4 loads, bulk copies).
+int ntxent_denominator(const void* z_rows, const void* z_cols, const void* row_ids, int M, int N,
+                       float temperature, int splits, int cols_per_split, void* partial,
+                       void* out, void* stream) {
+  if (bad_split_grid(M, N, splits, cols_per_split, DBN)) return (int)cudaErrorInvalidValue;
+  if (misaligned({z_rows, z_cols})) return (int)cudaErrorMisalignedAddress;
+  constexpr int smem = DenomLayout<DBN>::SMEM;
   static bool done[64] = {};
-  const cudaError_t err = allow_smem(ntxent_tile_kernel, TILE_SMEM, done);
+  const cudaError_t err = allow_smem(plain_denom_kernel<DBN>, smem, done);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (N + BN - 1) / BN;
-  const int cols_per_split = (tiles + splits - 1) / splits * BN;
   return with_splits<1>(splits, M, partial, out, s, [&](float* dst) {
-    ntxent_tile_kernel<<<dim3((M + BM - 1) / BM, splits), THREADS, TILE_SMEM, s>>>(
+    plain_denom_kernel<DBN><<<dim3((M + GBM - 1) / GBM, splits), GTHREADS, smem, s>>>(
         static_cast<const float*>(z_rows), static_cast<const float*>(z_cols),
         static_cast<const int*>(row_ids), M, N, temperature, cols_per_split, dst);
   });

@@ -25,14 +25,14 @@ from simhand_tpu_torch import native
 from simhand_tpu_torch.device import on_cpu
 
 D = 128          # projection width the kernels are built for
-_BM, _BN = 64, 64  # row block and column tile of #1 in csrc/ntxent.cu
-_GBM, _GBN = 64, 32  # row block and column tile of the tensor-core kernels #2-#4
-# the kernels whose grid _tensor_core_grid plans (the others: _splits)
-_TENSOR_CORE = ("weighted_ntxent_denominator", "ntxent_grad", "weighted_grad_rows")
+_GBM = 64        # rows of a CTA of the kernels in csrc/ntxent.cu
+# columns of a kernel's tile (csrc/ntxent.cu: DBN for #1, GBN for #2-#4)
+_TILE = {"ntxent_denominator": 64, "weighted_ntxent_denominator": 32, "ntxent_grad": 32,
+         "weighted_grad_rows": 32}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ntxent_denominator": [_P, _P, _P, _I, _I, _F, _I, _P, _P, _P],
+    "ntxent_denominator": [_P] * 3 + [_I, _I, _F, _I, _I, _P, _P, _P],
     "weighted_ntxent_denominator": [_P] * 6 + [_I, _I, _F, _I, _I, _P, _P, _P],
     "ntxent_grad": [_P] * 5 + [_I, _I, _F, _I, _I, _P, _P, _P],
     "weighted_grad_rows": [_P] * 8 + [_I, _I, _F, _I, _I, _P, _P, _P],
@@ -121,7 +121,8 @@ def _check_z(z_rows, z_cols) -> tuple[int, int]:
     _check(z_rows, "z_rows", (m, D))
     _check(z_cols, "z_cols", (n, D))
     if z_rows.data_ptr() % 16 or z_cols.data_ptr() % 16:
-        raise ValueError("z_rows and z_cols must be 16-byte aligned (float4 loads)")
+        raise ValueError("z_rows and z_cols must be 16-byte aligned (float4 loads, "
+                         "bulk copies)")
     return m, n
 
 
@@ -142,35 +143,24 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _splits(m: int, n: int, device: torch.device) -> int:
-    """Column splits of #1's grid: enough for about two blocks per SM when
-    the row blocks alone are too few, but at most one per column tile (so 8
-    x 8 = 64 blocks at 512 x 512). The partials are added in a second pass."""
-    row_blocks = math.ceil(m / _BM)
-    return max(1, min(math.ceil(n / _BN), math.ceil(2 * _sm_count(device) / row_blocks)))
-
-
-def _tensor_core_grid(m: int, n: int, device: torch.device) -> tuple[int, int]:
-    """(splits, columns a split takes) of the grid of the tensor-core kernels
-    #2-#4 (one CTA an SM): when their row blocks are fewer than the SMs, as
-    many splits of whole column tiles as fill the SMs, none empty. The
-    float32 partials, (splits, M) for #2 and (splits, M, 128) for #3/#4,
-    are added in a second pass: 16 splits at 512 x 512 and 512 x 16,384 (32
-    KiB for #2, 4 MiB for #3/#4), none at 16,384 x 16,384."""
-    tiles = math.ceil(n / _GBN)
+def _tensor_core_grid(m: int, n: int, device: torch.device, tile: int) -> tuple[int, int]:
+    """(splits, columns a split takes) of the grid of a kernel whose tiles
+    have ``tile`` columns (one CTA an SM): when its row blocks are fewer
+    than the SMs, as many splits of whole column tiles as fill the SMs,
+    none empty. The float32 partials, (splits, M) for the denominators and
+    (splits, M, 128) for the gradients, are added in a second pass. With
+    32-column tiles (#2-#4): 16 splits at 512 x 512 and 512 x 16,384 (32
+    KiB for #2, 4 MiB for #3/#4); with #1's 64: 8 splits at 512 x 512 (16
+    KiB) and 16 at 512 x 16,384 (32 KiB); none at 16,384 x 16,384."""
+    tiles = math.ceil(n / tile)
     want = max(1, min(tiles, _sm_count(device) // math.ceil(m / _GBM)))
     per = math.ceil(tiles / want)
-    return math.ceil(tiles / per), per * _GBN
+    return math.ceil(tiles / per), per * tile
 
 
 def _launch(name: str, inputs: list, m: int, n: int, temperature: float,
             out: torch.Tensor) -> None:
-    if name in _TENSOR_CORE:
-        splits, cols = _tensor_core_grid(m, n, out.device)
-        grid = [splits, cols]
-    else:
-        splits = _splits(m, n, out.device)
-        grid = [splits]
+    splits, cols = _tensor_core_grid(m, n, out.device, _TILE[name])
     lib = _library()
     # partial (and the caller's temporaries) may be freed once this returns:
     # the caching allocator hands their memory only to work queued later on
@@ -179,7 +169,7 @@ def _launch(name: str, inputs: list, m: int, n: int, temperature: float,
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = getattr(lib, name)(
-            *[t.data_ptr() for t in inputs], m, n, float(temperature), *grid,
+            *[t.data_ptr() for t in inputs], m, n, float(temperature), splits, cols,
             partial.data_ptr(), out.data_ptr(), stream,
         )
     if err != 0:

@@ -2,7 +2,9 @@
 stop-gradient BatchNorm (counterpart of ``simhand_tpu/models/norm.py``).
 
 ``subsample=k`` takes the forward statistics from the first N // k images
-(at least one); the batch is shuffled, so they are a uniform subset.
+(at least one); the batch is shuffled, so they are a uniform subset. A
+negative ``k`` takes the whole batch and ``k = 0`` raises
+``ZeroDivisionError`` in train mode, as the reference does.
 ``stop_gradient_stats`` keeps gradients out of the mean and variance
 (``--bn_variant stop_grad`` of the JAX CLI). Statistics are float32 with
 the variance clamped at 0; the statistics and the affine are folded into
@@ -22,13 +24,14 @@ class SubsampledBatchNorm(BatchNorm2d):
     def __init__(self, c: int, subsample: int = 4, stop_gradient_stats: bool = False,
                  momentum: float = 0.9, eps: float = 1e-5):
         super().__init__(c, momentum, eps)
-        if subsample < 1:
-            raise ValueError(f"subsample must be >= 1, got {subsample}")
         self.subsample, self.stop_gradient_stats = subsample, stop_gradient_stats
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            sub = x[:max(x.shape[0] // self.subsample, 1)] if self.subsample > 1 else x
+            # as the reference: a subsample < 1 takes the whole batch, and 0
+            # raises ZeroDivisionError here
+            n_sub = max(x.shape[0] // self.subsample, 1)
+            sub = x[:n_sub] if self.subsample > 1 else x
             sub32 = sub.float()
             dims = [d for d in range(x.dim()) if d != 1]
             mean = sub32.mean(dims)

@@ -11,11 +11,13 @@ The BatchNorm variants of the JAX ``ResNet``, with its precedence:
 backward) routes every bn+relu and bn+add+relu site through
 ``bn_epilogue.BNRelu`` and keeps exact BatchNorm at the downsample sites;
 it ignores ``bn_subsample`` and ``bn_stop_gradient_stats``, as the
-reference does. ``bn_fused=True`` (or ``"pallas"``, with kernel #9 in the
-backward) puts ``fused_bn.FusedBatchNorm`` at every site, downsample
-included; it passes ``bn_stop_gradient_stats`` on and ignores
+reference does. ``bn_fused=True`` or ``"xla"`` (or ``"pallas"``, with
+kernel #9 in the backward) puts ``fused_bn.FusedBatchNorm`` at every site,
+downsample included; it passes ``bn_stop_gradient_stats`` on and ignores
 ``bn_subsample``. Otherwise ``bn_subsample > 1`` or
-``bn_stop_gradient_stats`` puts ``norm.SubsampledBatchNorm`` at every site.
+``bn_stop_gradient_stats`` puts ``norm.SubsampledBatchNorm`` at every site;
+``bn_subsample < 1`` is exact BatchNorm, as the reference's ``> 1`` test
+makes it.
 ``conv1x1_fuse_min_cin > 0`` takes each bottleneck's conv1 and conv3 with
 at least that many input channels through ``fused_conv.fused_conv_bn_site``
 (kernel #10) in train mode; it composes only with exact BatchNorm.
@@ -51,14 +53,14 @@ def norm_layers(bn_fused=False, bn_subsample: int = 1,
     if bn_fused in ("epilogue", "epilogue_xla"):
         impl = "plain" if bn_fused == "epilogue_xla" else "kernel"
         return BatchNorm2d, partial(BNRelu, impl=impl)
-    if bn_fused in (True, "pallas"):
+    if bn_fused in (True, "xla", "pallas"):
         return partial(FusedBatchNorm, stop_gradient_stats=bn_stop_gradient_stats,
                        reduce_impl="kernel" if bn_fused == "pallas" else "plain"), None
     if bn_fused not in (False,):
-        raise ValueError(f"bn_fused={bn_fused!r}: expected False, True, 'pallas', "
+        raise ValueError(f"bn_fused={bn_fused!r}: expected False, True, 'xla', 'pallas', "
                          "'epilogue' or 'epilogue_xla'")
-    if bn_subsample < 1:
-        raise ValueError(f"bn_subsample must be >= 1, got {bn_subsample}")
+    # bn_subsample < 1 takes the reference's branches too: exact BatchNorm,
+    # or with stopped gradients SubsampledBatchNorm over the whole batch
     if bn_subsample > 1 or bn_stop_gradient_stats:
         return partial(SubsampledBatchNorm, subsample=bn_subsample,
                        stop_gradient_stats=bn_stop_gradient_stats), None

@@ -473,12 +473,13 @@ def test_epilogue_takes_precedence_over_subsample_and_stop_grad():
 def test_bn_fused_values():
     from simhand_tpu_torch.models.fused_bn import FusedBatchNorm
 
-    for value, impl in (("pallas", "kernel"), (True, "plain")):
+    # "xla" builds what True builds, as the reference's bn_fused="xla" does
+    for value, impl in (("pallas", "kernel"), (True, "plain"), ("xla", "plain")):
         sites = [m for m in TModel("18", bn_fused=value).encoder.modules()
                  if isinstance(m, BatchNorm2d)]
         assert len(sites) == 20
         assert all(isinstance(m, FusedBatchNorm) and m.reduce_impl == impl for m in sites)
-    for bad in ("xla", "epilogue_pallas", None):
+    for bad in ("epilogue_pallas", None):
         with pytest.raises(ValueError, match="bn_fused"):
             TModel("18", bn_fused=bad)
     with pytest.raises(ValueError, match="maxpool"):

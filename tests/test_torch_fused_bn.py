@@ -7,7 +7,8 @@ float32 and bf16. Module level: ``FusedBatchNorm`` against the JAX
 ``FusedBatchNorm`` (reduce_impl "xla"/"pallas", with and without stopped
 statistics' gradients). Model level: ``ContrastiveModel(bn_fused="pallas")``
 against the JAX ``bn_fused=True`` (the same math without interpret mode),
-weights carried over by ``simhand_tpu_torch.convert``. Inputs are made from
+and ``bn_fused="xla"`` against the JAX ``bn_fused="xla"`` (the plain
+reduces on both sides), weights carried over by ``simhand_tpu_torch.convert``. Inputs are made from
 a seed with numpy.
 """
 from functools import partial
@@ -123,20 +124,24 @@ def test_fused_batchnorm_matches_jax(dtype, reduce_impl, stop_grad):
 
 
 # --------------------------------------------------------------------------
-# model level: ContrastiveModel(bn_fused="pallas") against JAX bn_fused=True
+# model level: ContrastiveModel(bn_fused="pallas") against JAX bn_fused=True,
+# and bn_fused="xla" on both sides
 # --------------------------------------------------------------------------
 
 SIDE, B = 32, 4
+# (ResNet size, the JAX model's bn_fused, the port's) by fixture id
+FUSED_MODELS = {"18": ("18", True, "pallas"), "50": ("50", True, "pallas"),
+                "18-xla": ("18", "xla", "xla")}
 
 
-@pytest.fixture(scope="module", params=["18", "50"])
+@pytest.fixture(scope="module", params=list(FUSED_MODELS))
 def fused(request):
-    """The JAX bn_fused=True model's train-mode outputs, new statistics and
+    """The JAX fused model's train-mode outputs, new statistics and
     parameter gradients of sum(proj * w), and its eval-mode outputs after
-    the statistics update; the port's bn_fused="pallas" model loaded from
-    its variables with strict=True."""
-    size = request.param
-    jm = JModel(resnet_size=size, bn_fused=True)
+    the statistics update; the port's fused model loaded from its variables
+    with strict=True."""
+    size, jax_fused, bn_fused = FUSED_MODELS[request.param]
+    jm = JModel(resnet_size=size, bn_fused=jax_fused)
     variables = jax.jit(jm.init)(jax.random.key(0), jnp.zeros((2, SIDE, SIDE, 3)))
     rng = np.random.default_rng(0)
     x = rng.normal(size=(B, SIDE, SIDE, 3)).astype(np.float32)
@@ -154,9 +159,9 @@ def fused(request):
     evaluated = jax.jit(partial(jm.apply, train=False))(
         {"params": variables["params"], "batch_stats": stats}, x)
     init = from_flax_variables(to_numpy(variables["params"]), to_numpy(variables["batch_stats"]))
-    model = TModel(size, bn_fused="pallas")
+    model = TModel(size, bn_fused=bn_fused)
     model.load_state_dict(init, strict=True)
-    return dict(size=size, x=x, w=w, model=model, init=init, emb=emb, proj=proj,
+    return dict(size=size, bn_fused=bn_fused, x=x, w=w, model=model, init=init, emb=emb, proj=proj,
                 stats=from_flax_variables(to_numpy(variables["params"]), to_numpy(stats)),
                 grads=from_flax_variables(to_numpy(grads), to_numpy(stats)),
                 eval=evaluated)
@@ -170,7 +175,8 @@ def test_fused_model_is_built_of_fused_batchnorms(fused):
     sites = [n for n, m in model.encoder.named_modules() if isinstance(m, T.FusedBatchNorm)]
     assert len(sites) == {"18": 20, "50": 53}[fused["size"]]
     assert sum(n.endswith("downsample.1") for n in sites) == {"18": 3, "50": 4}[fused["size"]]
-    assert all(m.reduce_impl == "kernel" and not m.stop_gradient_stats
+    impl = "kernel" if fused["bn_fused"] == "pallas" else "plain"
+    assert all(m.reduce_impl == impl and not m.stop_gradient_stats
                for m in model.modules() if isinstance(m, T.FusedBatchNorm))
     assert not any(isinstance(m, T.FusedBatchNorm) for m in model.projection_head.modules())
     assert sorted(model.state_dict()) == sorted(fused["init"])

@@ -55,8 +55,9 @@ def _inputs(gen, m, n, offset):
 
 # (M, N, row offset): the training step's shape, and ragged shapes that end
 # inside a tile (every row and column edge is masked in the kernels; 4,099
-# columns end inside #4's 32-column tile and leave its copies of joints and
-# 1/neg ragged tails, 509 rows end inside its 64-row block)
+# columns end inside #4's 32-column tile and #1's 64-column one and leave
+# #4's copies of joints and 1/neg ragged tails, 509 rows end inside the
+# 64-row block)
 NTXENT_CASES = [(512, 512, 0), (300, 700, 37), (1, 65, 64), (509, 4099, 37)]
 NTXENT_IDS = ["step", "ragged-shard", "one-row", "ragged-tile"]
 
@@ -78,13 +79,13 @@ def test_kernels_match_plain_versions(cuda, m, n, offset):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["weighted_ntxent_denominator", "ntxent_grad",
-                                  "weighted_grad_rows"])
+@pytest.mark.parametrize("name", ["ntxent_denominator", "weighted_ntxent_denominator",
+                                  "ntxent_grad", "weighted_grad_rows"])
 @pytest.mark.parametrize("m,n,offset", NTXENT_CASES, ids=NTXENT_IDS)
 def test_weighted_grad_rows_repeats_bit_for_bit(cuda, m, n, offset, name):
-    """The tensor-core kernels #2, #3 and #4 (three-pass TF32 products,
-    column splits added in a fixed order): a second launch gives the same
-    bits, within the limit of the plain version."""
+    """The tensor-core kernels #1-#4 (three-pass TF32 products, column
+    splits added in a fixed order): a second launch gives the same bits,
+    within the limit of the plain version."""
     args = tuple(a.contiguous() for a in _inputs(cuda, m, n, offset)[name])
     kernel = getattr(K, name)
     K.reset_launches()

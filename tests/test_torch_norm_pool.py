@@ -16,6 +16,7 @@ from simhand_tpu.models.norm import SubsampledBatchNorm as JNorm
 from simhand_tpu.models.pool import max_pool_firstmatch as jpool
 from simhand_tpu_torch.convert import from_flax_variables
 from simhand_tpu_torch.models import ContrastiveModel as TModel
+from simhand_tpu_torch.models.layers import BatchNorm2d
 from simhand_tpu_torch.models.norm import SubsampledBatchNorm
 from simhand_tpu_torch.models.pool import max_pool_firstmatch
 
@@ -31,13 +32,14 @@ def to_nhwc(t: torch.Tensor) -> np.ndarray:
 
 
 @pytest.mark.parametrize("stop_grad", [False, True], ids=["grad", "stop_grad"])
-@pytest.mark.parametrize("subsample", [1, 4])
+@pytest.mark.parametrize("subsample", [1, 4, -1])
 def test_subsampled_batchnorm_matches_flax(subsample, stop_grad):
     """Train mode: output, the gradients of x, scale and bias, the running
     statistics; eval mode: the output. The same float32 expressions summed
     in another order: rtol 1e-5 of each tensor's largest element (the
-    x-gradient through the statistics: 1e-4, a difference of two sums)."""
-    rng = np.random.default_rng(subsample + 2 * stop_grad)
+    x-gradient through the statistics: 1e-4, a difference of two sums). A
+    negative subsample takes the whole batch, as flax's does."""
+    rng = np.random.default_rng(abs(subsample) + 2 * stop_grad)
     shape, c = (8, 6, 6, 16), 16
     x = (rng.normal(size=shape) * 2 + 0.5).astype(np.float32)
     g = rng.normal(size=shape).astype(np.float32)
@@ -79,6 +81,33 @@ def test_subsampled_batchnorm_matches_flax(subsample, stop_grad):
     close(bn.running_mean.numpy(), new_stats["batch_stats"]["mean"])
     close(bn.running_var.numpy(), new_stats["batch_stats"]["var"])
     close(to_nhwc(ty_eval), y_eval)
+
+
+@pytest.mark.parametrize("stop_grad", [False, True], ids=["grad", "stop_grad"])
+def test_subsample_zero_raises_in_train_mode_as_flax(stop_grad):
+    """subsample=0: the reference's train mode divides by it
+    (ZeroDivisionError); eval mode reads the running statistics alone and
+    gives the same output in both packages."""
+    rng = np.random.default_rng(7)
+    c = 8
+    x = rng.normal(size=(4, 3, 3, c)).astype(np.float32)
+    params = {"scale": np.ones(c, np.float32), "bias": np.zeros(c, np.float32)}
+    stats = {"mean": (rng.normal(size=c) * 0.1).astype(np.float32),
+             "var": rng.uniform(0.5, 2.0, size=c).astype(np.float32)}
+    jm = JNorm(subsample=0, stop_gradient_stats=stop_grad)
+    with pytest.raises(ZeroDivisionError):
+        jm.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
+                 mutable=["batch_stats"])
+    bn = SubsampledBatchNorm(c, subsample=0, stop_gradient_stats=stop_grad)
+    with pytest.raises(ZeroDivisionError):
+        bn.train()(nchw(x))
+    with torch.no_grad():
+        bn.running_mean.copy_(torch.from_numpy(stats["mean"]))
+        bn.running_var.copy_(torch.from_numpy(stats["var"]))
+        got = to_nhwc(bn.eval()(nchw(x)))
+    want = np.asarray(jm.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
+                               use_running_average=True))
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
 
 
 def first_match_grad(x: np.ndarray, g: np.ndarray) -> np.ndarray:
@@ -126,17 +155,14 @@ def test_max_pool_firstmatch_matches_jax(dtype):
         np.testing.assert_allclose(to_nhwc(tdx), first_match_grad(x, g), rtol=1e-6, atol=0)
 
 
-def test_variant_model_matches_jax():
-    """ContrastiveModel(bn_subsample=2, bn_stop_gradient_stats=True,
-    maxpool="masked"), ResNet-18 at 32x32 and B = 8 (statistics from 4
-    images), loaded from the JAX model's variables with strict=True.
-    Train-mode outputs and statistics to 1e-3 of the largest element
-    (measured 1.7e-4 and 1.2e-4); each parameter gradient of sum(proj * w)
-    to 2e-3 of its norm (measured <= 2e-4; fc1.bias, 0 up to rounding, to
-    1e-6 of fc1.weight's largest gradient); eval outputs to 2e-3 (measured
-    4.8e-5)."""
+def assert_model_matches_jax(kw: dict) -> TModel:
+    """ContrastiveModel(**kw), ResNet-18 at 32x32 and B = 8, loaded from the
+    JAX model's variables with strict=True, against the JAX model: train-mode
+    outputs and statistics to 1e-3 of the largest element; each parameter
+    gradient of sum(proj * w) to 2e-3 of its norm (fc1.bias, 0 up to
+    rounding, to 1e-6 of fc1.weight's largest gradient); eval outputs to
+    2e-3. Returns the port's model."""
     side, b = 32, 8
-    kw = dict(bn_subsample=2, bn_stop_gradient_stats=True, maxpool="masked")
     jm = JModel(resnet_size="18", **kw)
     variables = jax.jit(jm.init)(jax.random.key(0), jnp.zeros((2, side, side, 3)))
     rng = np.random.default_rng(0)
@@ -183,3 +209,26 @@ def test_variant_model_matches_jax():
     with torch.no_grad():
         eemb, eproj = model.eval()(torch.from_numpy(x))
     assert max_rel(eemb, jeval[0]) < 2e-3 and max_rel(eproj, jeval[1]) < 2e-3
+    return model
+
+
+def test_variant_model_matches_jax():
+    """ContrastiveModel(bn_subsample=2, bn_stop_gradient_stats=True,
+    maxpool="masked"), statistics from 4 of the 8 images, within
+    assert_model_matches_jax's limits (measured: train outputs 1.7e-4,
+    statistics 1.2e-4, gradients <= 2e-4 of their norms, eval 4.8e-5)."""
+    assert_model_matches_jax(dict(bn_subsample=2, bn_stop_gradient_stats=True,
+                                  maxpool="masked"))
+
+
+@pytest.mark.parametrize("kw", [dict(bn_subsample=0), dict(bn_subsample=-1),
+                                dict(bn_subsample=-1, bn_stop_gradient_stats=True)],
+                         ids=["0", "-1", "-1-stop_grad"])
+def test_subsample_below_one_takes_the_references_branch(kw):
+    """The reference's test is bn_subsample > 1 (simhand_tpu/models/
+    resnet.py:217): below 1 without stopped gradients it builds exact
+    BatchNorm, with them SubsampledBatchNorm over the whole batch. The
+    port builds the same modules and matches the JAX model."""
+    model = assert_model_matches_jax(kw)
+    norms = {type(m) for m in model.encoder.modules() if isinstance(m, BatchNorm2d)}
+    assert norms == {SubsampledBatchNorm if kw.get("bn_stop_gradient_stats") else BatchNorm2d}

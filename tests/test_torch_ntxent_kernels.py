@@ -168,10 +168,11 @@ def _batch(rng, b, side=128.0):
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
-@pytest.mark.parametrize("etype", ["simclr", "simhand_w"])
+@pytest.mark.parametrize("etype", ["simclr", "simhand_w", "peclr", "simhand-base"])
 def test_contrastive_loss_from_projections_matches(etype, use_pallas):
     """Both routes of the dispatch: B = 256 passes the 2B % 512 gate when
-    use_pallas is on, so both packages take their kernel route."""
+    use_pallas is on, so both packages take their kernel route (the plain
+    family's: nt_xent_pallas in JAX, #1's and #3's plain versions here)."""
     rng = np.random.default_rng(11)
     b = 256
     proj = rng.normal(size=(2 * b, 128)).astype(np.float32)
@@ -189,33 +190,40 @@ def test_contrastive_loss_from_projections_matches(etype, use_pallas):
 
 
 # --------------------------------------------------------------------------
-# the grid of the tensor-core kernels #2-#4 and their three-pass TF32 products
+# the grid of the tensor-core kernels #1-#4 and their three-pass TF32 products
 # --------------------------------------------------------------------------
 
-# (M, N, splits) as the note of csrc/ntxent.cu states them for an H100's 132
-# SMs; the partial plane holds splits x M floats for #2, splits x M x 128
-# for #3 and #4, and is not used with one split
-GRAD_GRIDS = [(512, 512, 16), (512, 16384, 16), (16384, 16384, 1)]
-PARTIAL_FLOATS_A_ROW = {"weighted_ntxent_denominator": 1, "ntxent_grad": K.D,
-                        "weighted_grad_rows": K.D}
-PARTIAL_BYTES = {("weighted_ntxent_denominator", 512): 32 * 2**10,
-                 ("ntxent_grad", 512): 4 * 2**20, ("weighted_grad_rows", 512): 4 * 2**20}
+# (M, N) and the splits at them by the kernel's tile width, as the note of
+# csrc/ntxent.cu states them for an H100's 132 SMs; the partial plane holds
+# splits x M floats for #1/#2, splits x M x 128 for #3/#4, and is not used
+# with one split
+GRAD_GRIDS = [(512, 512), (512, 16384), (16384, 16384)]
+SPLITS = {32: (16, 16, 1), 64: (8, 16, 1)}
+PARTIAL_FLOATS_A_ROW = {"ntxent_denominator": 1, "weighted_ntxent_denominator": 1,
+                        "ntxent_grad": K.D, "weighted_grad_rows": K.D}
+PARTIAL_BYTES = {("ntxent_denominator", 512, 512): 16 * 2**10,
+                 ("ntxent_denominator", 512, 16384): 32 * 2**10,
+                 **{("weighted_ntxent_denominator", 512, n): 32 * 2**10 for n in (512, 16384)},
+                 **{(name, 512, n): 4 * 2**20 for name in ("ntxent_grad", "weighted_grad_rows")
+                    for n in (512, 16384)}}
 
 
 @pytest.mark.parametrize("name", list(PARTIAL_FLOATS_A_ROW))
-@pytest.mark.parametrize("m,n,splits", GRAD_GRIDS, ids=["512x512", "512x16384", "16384x16384"])
-def test_weighted_grad_grid_covers_every_column_tile_once(monkeypatch, m, n, splits, name):
-    """The planner of #2, #3 and #4 (one CTA an SM)."""
+@pytest.mark.parametrize("m,n", GRAD_GRIDS, ids=["512x512", "512x16384", "16384x16384"])
+def test_weighted_grad_grid_covers_every_column_tile_once(monkeypatch, m, n, name):
+    """The planner of #1-#4 (one CTA an SM), at each kernel's tile width:
+    64 columns for #1, 32 for #2-#4."""
     monkeypatch.setattr(K, "_sm_count", lambda device: 132)
-    assert name in K._TENSOR_CORE
-    got, cols = K._tensor_core_grid(m, n, None)
+    tile = K._TILE[name]
+    got, cols = K._tensor_core_grid(m, n, None, tile)
     partial_bytes = got * m * PARTIAL_FLOATS_A_ROW[name] * 4 if got > 1 else 0
-    assert (got, partial_bytes) == (splits, PARTIAL_BYTES.get((name, m), 0))
-    assert cols % K._GBN == 0
+    splits = SPLITS[tile][GRAD_GRIDS.index((m, n))]
+    assert (got, partial_bytes) == (splits, PARTIAL_BYTES.get((name, m, n), 0))
+    assert cols % tile == 0
     # split s takes the columns [s * cols, (s + 1) * cols) of N
-    tiles = [tile for s in range(got)
-             for tile in range(s * cols // K._GBN, math.ceil(min(n, (s + 1) * cols) / K._GBN))]
-    assert sorted(tiles) == list(range(math.ceil(n / K._GBN)))  # each tile exactly once
+    tiles = [t for s in range(got)
+             for t in range(s * cols // tile, math.ceil(min(n, (s + 1) * cols) / tile))]
+    assert sorted(tiles) == list(range(math.ceil(n / tile)))  # each tile exactly once
     assert (got - 1) * cols < n                                 # no split is empty
     assert got * math.ceil(m / K._GBM) <= 132 or got == 1       # one wave where split
 
@@ -252,6 +260,12 @@ def weighted_denominator_tf32(zr, zc, jr, jc, inv_r, inv_c, ids, d_max, d_min, p
     return torch.where(K._self_mask(ids, zc.shape[0]), 0.0, s).sum(dim=1)
 
 
+def plain_denominator_tf32(zr, zc, jr, jc, inv_r, inv_c, ids, d_max, d_min, passes):
+    """ntxent_denominator_plain with its product through tf32_matmul."""
+    s = torch.exp(tf32_matmul(zr, zc.T, passes) / T)
+    return torch.where(K._self_mask(ids, zc.shape[0]), 0.0, s).sum(dim=1)
+
+
 def plain_grad_tf32(zr, zc, jr, jc, inv_r, inv_c, ids, d_max, d_min, passes):
     """ntxent_grad_plain with both products through tf32_matmul."""
     g = torch.exp(tf32_matmul(zr, zc.T, passes) / T) * (inv_r[:, None] + inv_c[None, :])
@@ -267,7 +281,9 @@ TF32_CASES = {
                                     ("z_rows", "z_cols", "j_rows", "j_cols", "row_ids",
                                      "d_max", "d_min")),
     "ntxent_grad": (plain_grad_tf32, ("z_rows", "z_cols", "inv_rows", "inv_cols", "row_ids")),
+    "ntxent_denominator": (plain_denominator_tf32, ("z_rows", "z_cols", "row_ids")),
 }
+DENOMINATORS = ("ntxent_denominator", "weighted_ntxent_denominator")
 
 
 @pytest.mark.parametrize("name", list(TF32_CASES))
@@ -275,14 +291,14 @@ def test_three_tf32_passes_keep_the_gradient_within_its_limit(name):
     """The kernels' products, emulated: three TF32 passes stay within the
     card's limit of the float64 function at 512 rows against 2,048 columns,
     one pass does not. The limits: 1e-5 of max|G| for the gradients #3 and
-    #4, rel 1e-5 for the denominator #2. A denominator sums positive terms,
+    #4, rel 1e-5 for the denominators #1 and #2. A denominator sums positive terms,
     so one pass's rounding of c averages out over the columns unless the
     rows' own rounding errors do not: the projections here share a
     direction, as an encoder's often do."""
     rng = np.random.default_rng(3)
     n, m = 2048, 512
     z = rng.normal(size=(n, 128))
-    if name == "weighted_ntxent_denominator":
+    if name in DENOMINATORS:
         z = z + 2.0 * rng.normal(size=(1, 128))
     zc = torch.from_numpy(normalize(z))
     jc = torch.from_numpy(rng.uniform(0, 128, (n, 21, 2)).astype(np.float32))
@@ -297,7 +313,7 @@ def test_three_tf32_passes_keep_the_gradient_within_its_limit(name):
     want = getattr(K, f"{name}_plain")(*(a.double() if a.is_floating_point() else a
                                           for k, a in zip(names, args) if k in keys), T)
     got = {p: emulate(*args, p).double() for p in (3, 1)}
-    if name == "weighted_ntxent_denominator":
+    if name in DENOMINATORS:
         limit, errs = 1e-5, {p: float(((g - want) / want).abs().max()) for p, g in got.items()}
     else:
         limit = 1e-5 * float(want.abs().max())
