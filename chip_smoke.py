@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 0]
 
-1. builds the CUDA kernels from ``simhand_tpu_torch/csrc`` into ``build/``
+1. builds the CUDA kernels (and the host gather of the crop cache) from
+   ``simhand_tpu_torch/csrc`` into ``build/``
    and prints the card's name and power limit;
 2. holds each of the four NT-Xent kernels against its plain PyTorch version
    in float32 (TF32 off) at three shapes: the training step's 512 x 512, a
@@ -25,7 +26,20 @@
    breakdown of three kernel-route steps with the share of their wall time
    in which the card ran no kernel (profiler on), each NT-Xent kernel's ms
    and launches a step with its sum pass, and the launches of #2, #4 and
-   their sum passes required;
+   their sum passes required; then the production input path: a corpus of
+   2,048 synthetic 224x224 crops from ``--seed`` (no cv2) written to a
+   packed crop cache under ``build/``, raw batches of 256 pairs gathered
+   natively by two iterator threads and prefetched through pinned buffers,
+   and the same step augmenting both views on the card (crop, rotate,
+   resize): finite losses, a parameter change at step 1, #2 and #4 on every
+   step, an augmented eval step that gives the same loss twice; the
+   composed step, the augmented step on one raw batch held on the card and
+   the pre-augmented step timed in turns, the host's assembly rate, the
+   pinned link, the feed alone and a profile of the composed step; the
+   augmentation alone (events, device ms, top kernels) for the main path's
+   flags and for every flag, each also applied on the card and on the CPU
+   to one draw (the crop box exactly, the images within 0.05 on the 0-255
+   scale on all but 1e-4 of their elements, the joints within 1e-3 px);
 4. holds each of the four fused BN+ReLU backward kernels (#5-#8, csrc/
    bn_epilogue.cu) against its plain PyTorch version in bf16 and float32 at
    the ResNet-50 step's stem (2,097,152 x 64), layer1-bn3 (524,288 x 256)
@@ -160,7 +174,9 @@ TF32_TENSOR_OPS_PER_S = 495e12
 SOURCES = {"ntxent": "simhand_tpu_torch/csrc/ntxent.cu",
            "bn_epilogue": "simhand_tpu_torch/csrc/bn_epilogue.cu",
            "conv1x1": "simhand_tpu_torch/csrc/conv1x1.cu",
-           "conv_bias": "simhand_tpu_torch/csrc/conv_bias.cu"}
+           "conv_bias": "simhand_tpu_torch/csrc/conv_bias.cu",
+           # host code: the crop cache's gather, built with g++
+           "batch_gather": "simhand_tpu_torch/csrc/batch_gather.cpp"}
 REPLACES = {
     "ntxent_denominator": "simhand_tpu/losses/pallas_ntxent.py:76",
     "weighted_ntxent_denominator": "simhand_tpu/losses/pallas_ntxent.py:154",
@@ -258,6 +274,16 @@ AUGMENTATION = ("crop", "rotate", "resize")
 # the step bench.py builds, at the smallest batch that takes the kernel route
 RESNET, SIDE, PAIRS = "50", 128, 256
 STEPS, TIMED_STEPS, PLAIN_STEPS, PROFILED_STEPS = 5, 10, 2, 3
+# the cache-fed phase: a synthetic corpus of CACHE_IMAGES 224x224 crops from
+# --seed in shards of CACHE_SHARD, augmented on the card with the main
+# path's flags (crop, rotate, resize) into SIDE x SIDE views
+CACHE_IMAGES, CACHE_SHARD, CROP = 2048, 512, 224
+CACHE_STEPS, AUGMENT_ITERS, LINK_COPIES = 3, 10, 10
+# the augmentation on the card against the CPU with the same draws, on the
+# 0-255 scale (tests/test_torch_augment.py's WARP_TOL and CHAIN_SHARE): all
+# but CHAIN_SHARE of the image elements within WARP_TOL, the crop box
+# exactly, the joints within JOINT_TOL px
+WARP_TOL, CHAIN_SHARE, JOINT_TOL = 0.05, 1e-4, 1e-3
 # step 0 of bn_fused="epilogue" against "epilogue_xla": each parameter
 # gradient relative to its norm, and all of them together
 # (measured on an H100: worst 9.0e-2, the stem's bn1.bias, a sum that
@@ -497,14 +523,20 @@ def compare_routes(state, batch, cfg, what: str = "step 0"):
     return ref
 
 
+def take(batch):
+    """The batch itself, or the next batch of a feed (a callable)."""
+    return batch() if callable(batch) else batch
+
+
 def timed(step, state, batch, n: int):
-    """Runs n steps; returns the state, the last loss and s/step."""
+    """Runs n steps on ``batch`` (or on the batches of a feed, taken inside
+    the timed loop); returns the state, the last loss and s/step."""
     import torch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
-        state, metrics = step(state, batch)
+        state, metrics = step(state, take(batch))
     last = float(metrics["contrastive_loss"])             # waits for the card
     return state, last, (time.perf_counter() - t0) / n
 
@@ -519,7 +551,7 @@ def profile_steps(step, state, batch, n: int = PROFILED_STEPS) -> dict:
         nonlocal state, wall
         t0 = time.perf_counter()
         for _ in range(n):
-            state, _ = step(state, batch)
+            state, _ = step(state, take(batch))
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n
 
@@ -591,7 +623,7 @@ def run_steps(step, state, batch, what: str, handles=(), steps: int = STEPS):
     losses = []
     for i in range(steps):
         before = [p.detach().clone() for p in state.params] if i == 1 else None
-        state, metrics = step(state, batch)
+        state, metrics = step(state, take(batch))
         losses.append(float(metrics["contrastive_loss"]))
         if before is not None:
             require(any(not torch.equal(p, q) for p, q in zip(before, state.params)),
@@ -662,6 +694,186 @@ def main_path(seed: int):
             f"the profile counts {perf['profile_ntxent_launches']} NT-Xent launches a "
             f"step, not {want} (#2, #4 and their sum passes)")
     return state, batch, launches, perf
+
+
+def augment_flag_sets():
+    from simhand_tpu_torch.data.augment_cv2 import AugmentFlags
+
+    every = {f.name: True for f in dataclasses.fields(AugmentFlags)}
+    return {"main": AugmentFlags(**{k: True for k in AUGMENTATION}),
+            "all": AugmentFlags(**every)}
+
+
+def augment_on_card_vs_cpu(raw: dict, flags, params, seed: int) -> dict:
+    """One draw on the card, applied on the card and (copied) on the CPU:
+    the crop box and angle exactly, the joints within JOINT_TOL px, the
+    images within WARP_TOL on the 0-255 scale on all but CHAIN_SHARE of
+    their elements. Returns the share past WARP_TOL and the largest
+    differences."""
+    import torch
+
+    from simhand_tpu_torch.data import augment as A
+
+    draws = A.sample_views(A.seeded_generator("cuda", seed), raw, flags, A.AugmentParams(),
+                           SIDE)
+    out = {"share_past_tol": 0.0, "max_image_diff": 0.0, "max_joint_diff": 0.0}
+    norm = 255.0 * min(A.IMAGENET_STD)
+    for v, d in zip((1, 2), draws):
+        cpu_d = A.AugmentDraws(*(None if t is None else t.cpu() for t in d))
+        img, joints = raw[f"image{v}"], raw[f"joints{v}"]
+        got = A.apply_augment(img, joints, d, flags, params, SIDE)
+        want = A.apply_augment(img.cpu(), joints.cpu(), cpu_d, flags, params, SIDE)
+        box = A.warp_box(joints.float(), d, flags, params, img.shape[1:3], SIDE)
+        cpu_box = A.warp_box(joints.cpu().float(), cpu_d, flags, params, img.shape[1:3], SIDE)
+        for name in ("angle", "origin", "side", "jitter"):
+            require(torch.equal(getattr(box, name).cpu(), getattr(cpu_box, name)),
+                    f"augmentation view {v}: the card's {name} differs from the CPU's")
+        diff = (got.images.cpu() - want.images).abs() * norm
+        jdiff = float((got.joints.cpu() - want.joints).abs().max())
+        out["share_past_tol"] = max(out["share_past_tol"], float((diff > WARP_TOL).double().mean()))
+        out["max_image_diff"] = max(out["max_image_diff"], float(diff.max()))
+        out["max_joint_diff"] = max(out["max_joint_diff"], jdiff)
+    require(out["share_past_tol"] <= CHAIN_SHARE and out["max_joint_diff"] <= JOINT_TOL,
+            f"augmentation on the card against the CPU: {out}")
+    return out
+
+
+def link_gbps(nbytes: int) -> float:
+    """Host-to-card GB/s of one pinned buffer of nbytes, by CUDA events over
+    LINK_COPIES non_blocking copies after a warm-up."""
+    import torch
+
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    ms = cuda_ms(lambda: dev.copy_(host, non_blocking=True), LINK_COPIES)
+    return nbytes / ms / 1e6
+
+
+def cache_fed_path(seed: int, state, pre_batch) -> dict:
+    """The production input path: a synthetic corpus in a packed crop cache
+    (built here, without cv2), raw pair batches by the native gather,
+    prefetched onto the card, and the simhand_w step augmenting both views
+    there. Checks as main_path's (finite losses, a parameter change at step
+    1, #2 and #4 on every step) and a repeatable eval step; then the
+    composed step timed in turns with main_path's pre-augmented step on the
+    same model, the host's assembly rate, the link, the profiled step, and
+    the augmentation alone and on the card against the CPU."""
+    import torch
+
+    from simhand_tpu_torch import native
+    from simhand_tpu_torch.data import augment as A
+    from simhand_tpu_torch.data.cache import CachedHand100MSource, build_crop_cache
+    from simhand_tpu_torch.data.pipeline import PretrainDataset, batch_iterator
+    from simhand_tpu_torch.data.prefetch import device_prefetch
+    from simhand_tpu_torch.data.sources import SyntheticHandSource
+    from simhand_tpu_torch.losses import ntxent_kernels as K
+    from simhand_tpu_torch.train import make_eval_step, make_train_step
+
+    perf = {}
+    t0 = time.perf_counter()
+    corpus = SyntheticHandSource(CACHE_IMAGES, side=CROP, seed=seed)
+    perf["corpus_s"] = time.perf_counter() - t0
+    cache_dir = native.BUILD_DIR / f"cache_fed_{seed}"
+    t0 = time.perf_counter()
+    build_crop_cache(corpus, str(cache_dir), shard_size=CACHE_SHARD)
+    perf["cache_write_s"] = time.perf_counter() - t0
+    del corpus
+    flags, params = augment_flag_sets()["main"], A.AugmentParams()
+    dataset = PretrainDataset(CachedHand100MSource(str(cache_dir)), "simhand_w", flags, params)
+    per_epoch = len(dataset) // PAIRS
+
+    t0 = time.perf_counter()
+    n = sum(len(b["image1"]) for b in batch_iterator(dataset, PAIRS, seed=seed, raw=True))
+    perf["host_pairs_per_s"] = n / (time.perf_counter() - t0)
+    raw_bytes = 2 * PAIRS * CROP * CROP * 3
+    perf["link_pinned_gbps"] = link_gbps(raw_bytes)
+    print(f"cache-fed: {CACHE_IMAGES} crops at {CROP}x{CROP} (corpus {perf['corpus_s']:.1f} s, "
+          f"cache {perf['cache_write_s']:.1f} s, {CACHE_IMAGES // CACHE_SHARD} shards); host "
+          f"assembly {perf['host_pairs_per_s']:.1f} pairs/s (gather, no device work); link "
+          f"{perf['link_pinned_gbps']:.2f} GB/s pinned ({raw_bytes / 1e6:.1f} MB a batch)")
+
+    def epochs():
+        epoch = 0
+        while True:
+            yield from batch_iterator(dataset, PAIRS, seed=seed, epoch=epoch, raw=True)
+            epoch += 1
+
+    source = epochs()
+    feed = device_prefetch(source)
+    cfg = step_config()
+    augment = (flags, params, SIDE)
+    composed = make_train_step(state.model, cfg, augment=augment)
+    # the composed step, the same step on one raw batch held on the card (no
+    # feed), and main_path's step on its pre-augmented batch
+    steps = {"composed": composed, "augmented": composed,
+             "pre_augmented": make_train_step(state.model, cfg)}
+    batches = {"composed": lambda: next(feed), "pre_augmented": pre_batch}
+    try:
+        K.reset_launches()
+        state, losses = run_steps(steps["composed"], state, batches["composed"], "cache-fed",
+                                  steps=CACHE_STEPS)
+        raw = batches["augmented"] = next(feed)
+        evaluate = make_eval_step(state.model, cfg, augment=augment)
+        evals = [float(evaluate(state, raw)["contrastive_loss"]) for _ in range(2)]
+        times = {k: [] for k in steps}
+        order = ("composed", "augmented", "pre_augmented", "pre_augmented", "augmented",
+                 "composed")
+        for route in order:
+            state, last, dt = timed(steps[route], state, batches[route], TIMED_STEPS)
+            require(math.isfinite(last), f"non-finite {route} loss")
+            times[route].append(dt * 1e3)
+        launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+        n_train = CACHE_STEPS + len(order) * TIMED_STEPS
+        print(f"cache-fed losses {losses}; eval {evals}; launches {launches}")
+        require(evals[0] == evals[1] and math.isfinite(evals[0]),
+                f"the augmented eval step is not repeatable: {evals}")
+        require(launches["weighted_ntxent_denominator"] == n_train + 2
+                and launches["weighted_grad_rows"] == n_train,
+                f"#2/#4 did not launch on every cache-fed step: {launches}")
+        perf.update({"losses": losses, "eval_loss": evals[0], "launches": launches})
+        for route, blocks in times.items():
+            ms = sum(blocks) / len(blocks)
+            perf[f"{route}_ms"], perf[f"{route}_pairs_per_s"] = ms, PAIRS / ms * 1e3
+            perf[f"{route}_ms_blocks"] = blocks
+        print(f"cache-fed: composed step {perf['composed_ms']:.2f} ms, "
+              f"{perf['composed_pairs_per_s']:.1f} pairs/s; on one raw batch on the card "
+              f"{perf['augmented_ms']:.2f} ms; pre-augmented step "
+              f"{perf['pre_augmented_ms']:.2f} ms, {perf['pre_augmented_pairs_per_s']:.1f} "
+              f"pairs/s (in turns: {times})")
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            next(feed)
+        torch.cuda.synchronize()
+        perf["feed_alone_ms"] = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+        print(f"cache-fed: the feed alone (gather, pinned copy, H2D; no step) "
+              f"{perf['feed_alone_ms']:.2f} ms a batch")
+        prof = profile_steps(steps["composed"], state, batches["composed"])
+        perf.update({f"composed_{k}": v for k, v in prof.items()
+                     if k in ("profile_wall_ms", "profile_kernel_ms", "profile_idle_share",
+                              "profile_ntxent_launches")})
+    finally:
+        feed.close()
+        source.close()
+
+    for label, fl in augment_flag_sets().items():
+        gen = A.seeded_generator("cuda", seed)
+
+        def run(fl=fl, gen=gen):
+            return A.prepare_views(raw, gen, fl, params, SIDE)
+
+        perf[f"augment_{label}_ms"] = cuda_ms(run, AUGMENT_ITERS)
+        by_kernel = device_ms_by_kernel(run, AUGMENT_ITERS)
+        perf[f"augment_{label}_device_ms"] = sum(by_kernel.values())
+        for key, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"augmentation ({label}): {ms:8.4f} ms  {key[:100]}")
+        perf[f"augment_{label}_vs_cpu"] = augment_on_card_vs_cpu(raw, fl, params, seed)
+        print(f"augmentation ({label} flags, both views of {PAIRS} pairs, {CROP}->{SIDE}): "
+              f"{perf[f'augment_{label}_ms']:.3f} ms, device "
+              f"{perf[f'augment_{label}_device_ms']:.3f} ms; on the card against the CPU "
+              f"{perf[f'augment_{label}_vs_cpu']}")
+    perf["augment_share_of_composed_kernels"] = (
+        perf["augment_main_device_ms"] / perf["composed_profile_kernel_ms"])
+    return perf
 
 
 def ntxent_launches_a_step(name: str) -> int:
@@ -2081,7 +2293,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    # one nvcc for each source, all started together
+    # one compiler for each source, all started together
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         libs = list(pool.map(native.build, SOURCES))
     print(f"built {[lib.name for lib in libs]} in {time.perf_counter() - t0:.1f} s")
@@ -2098,6 +2310,7 @@ def main() -> int:
     conv_bias_report = conv_bias_phase(args.seed)
     block_report = block_kernel_phase(args.seed)
     state, batch, main_launches, perf = main_path(args.seed)
+    cache_fed_perf = cache_fed_path(args.seed, state, batch)
     bn_launches, bn_perf = epilogue_path(args.seed, state, batch, perf["step0_loss"])
     fused_bn_launches, fused_bn_perf = fused_bn_path(args.seed, state, batch, perf["step0_loss"])
     conv_launches, conv_perf = conv1x1_path(args.seed, state, batch)
@@ -2172,7 +2385,8 @@ def main() -> int:
               f"ms={k['ms']:.4f} device_ms={k['device_ms']:.4f} "
               f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.4f}")
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
-    print(json.dumps({"step": perf, "epilogue_step": bn_perf, "fused_bn_step": fused_bn_perf,
+    print(json.dumps({"step": perf, "cache_fed_step": cache_fed_perf,
+                      "epilogue_step": bn_perf, "fused_bn_step": fused_bn_perf,
                       "conv1x1_step": conv_perf, "conv1x1_f32_step": f32_perf,
                       "plain_family_step": plain_perf,
                       "serving": serve_perf, "server": server_perf, "card": card}))

@@ -1,0 +1,79 @@
+"""Double-buffers host batches onto the card (counterpart of the single-device
+half of ``simhand_tpu/parallel/mesh.py:device_prefetch``).
+
+Each batch is copied into pinned host buffers, then to the card with
+``non_blocking`` copies on a side stream, so batch n + 1 crosses PCIe while
+batch n computes. The consumer's stream waits on the copy's event (the host
+does not), and the device tensors are recorded on the consumer's stream so
+the allocator keeps them until the consumer's work on them is done. A
+pinned buffer is filled again only after its last copy's event has
+completed.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from simhand_tpu_torch.device import resolve_device
+
+
+class _Slot:
+    """One set of pinned host buffers and the event of their last copy."""
+
+    def __init__(self):
+        self.host: dict[str, torch.Tensor] = {}
+        self.copied: torch.cuda.Event | None = None
+
+    def fill(self, batch: dict) -> dict[str, torch.Tensor]:
+        if self.copied is not None:
+            self.copied.synchronize()       # the last copy out of these buffers
+        for k, v in batch.items():
+            t = torch.from_numpy(np.asarray(v))
+            buf = self.host.get(k)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = self.host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t)
+        return {k: self.host[k] for k in batch}
+
+
+def device_prefetch(iterator, device=None, depth: int = 2) -> Iterator[dict]:
+    """Yields each numpy batch of ``iterator`` as tensors on ``device`` (the
+    card unless the caller passes ``device="cpu"``), ``depth`` batches
+    ahead of the consumer."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        for batch in iterator:
+            yield {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+        return
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    stream = torch.cuda.Stream(dev)
+    slots = [_Slot() for _ in range(depth)]
+    pending: collections.deque = collections.deque()
+
+    def put(n: int, batch: dict):
+        slot = slots[n % depth]
+        host = slot.fill(batch)
+        with torch.cuda.stream(stream):
+            out = {k: t.to(dev, non_blocking=True) for k, t in host.items()}
+            slot.copied = torch.cuda.Event()
+            slot.copied.record(stream)
+        return out, slot.copied
+
+    def take(item):
+        out, copied = item
+        consumer = torch.cuda.current_stream(dev)
+        consumer.wait_event(copied)
+        for t in out.values():
+            t.record_stream(consumer)
+        return out
+
+    for n, batch in enumerate(iterator):
+        pending.append(put(n, batch))
+        if len(pending) >= depth:
+            yield take(pending.popleft())
+    while pending:
+        yield take(pending.popleft())

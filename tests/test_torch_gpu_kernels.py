@@ -2,7 +2,9 @@
 the BatchNorm backward reduces of ``csrc/bn_epilogue.cu``, the 1x1
 convolution with statistics of ``csrc/conv1x1.cu``, and the convolution with
 a bias / residual / ReLU epilogue of ``csrc/conv_bias.cu`` with the whole
-bottleneck block built on it), against their plain PyTorch versions.
+bottleneck block built on it), against their plain PyTorch versions; and
+the input path on the card (the augmentation against the CPU on the same
+draws, the prefetched batches against the host's).
 
 These tests need a CUDA card and ``nvcc``; without them they skip. They
 import no JAX, so they run where the card is, without the repository's
@@ -629,3 +631,56 @@ def test_bottleneck_block_refuses_what_the_kernel_does_not_take(cuda):
                             w3[:100].contiguous(), b3[:100].contiguous(), hw=(4, 4))
     with pytest.raises(ValueError, match="several devices"):
         BB.bottleneck_block(x, w1.cpu(), b1, w2, b2, w3, b3, hw=(4, 4))
+
+
+# the augmentation on the card against the CPU with the same draws
+# (tests/test_torch_augment.py's chain tolerances, on the 0-255 scale): all
+# but 1e-4 of the image elements within 0.05, the crop box and angle
+# exactly, the joints within 1e-3 px
+AUGMENT_FLAGS = {"main": dict(crop=True, resize=True, rotate=True),
+                 "all": dict(color_drop=True, color_jitter=True, crop=True, cut_out=True,
+                             gaussian_blur=True, random_crop=True, resize=True, rotate=True,
+                             gaussian_noise=True, sobel_filter=True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["main", "all"])
+def test_augmentation_on_the_card_matches_the_cpu(cuda, which):
+    from simhand_tpu_torch.data import augment as A
+    from simhand_tpu_torch.data.sources import SyntheticHandSource
+
+    src = SyntheticHandSource(32, side=224, seed=1)
+    images = torch.from_numpy(src.images).cuda()
+    joints = torch.from_numpy(src.joints3d).cuda()
+    flags, params = A.AugmentFlags(**AUGMENT_FLAGS[which]), A.AugmentParams()
+    draws = A.sample_augment(A.seeded_generator("cuda", 0, 3), 32, 224, flags, params, 128)
+    cpu_draws = A.AugmentDraws(*(None if t is None else t.cpu() for t in draws))
+    got = A.apply_augment(images, joints, draws, flags, params, 128)
+    want = A.apply_augment(images.cpu(), joints.cpu(), cpu_draws, flags, params, 128)
+    box = A.warp_box(joints, draws, flags, params, (224, 224), 128)
+    cpu_box = A.warp_box(joints.cpu(), cpu_draws, flags, params, (224, 224), 128)
+    for got_t, want_t in zip(box, cpu_box):
+        assert torch.equal(got_t.cpu(), want_t)
+    assert torch.equal(got.angle.cpu(), want.angle)
+    diff = (got.images.cpu() - want.images).abs() * (255.0 * min(A.IMAGENET_STD))
+    assert float((diff > 0.05).double().mean()) <= 1e-4
+    assert float((got.joints.cpu() - want.joints).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_prefetched_batches_equal_the_hosts(cuda):
+    import numpy as np
+
+    from simhand_tpu_torch.data.prefetch import device_prefetch
+
+    rng = np.random.default_rng(0)
+    batches = [{"image1": rng.integers(0, 256, (8, 224, 224, 3), dtype=np.uint8),
+                "joints1": rng.normal(size=(8, 21, 3)).astype(np.float32)} for _ in range(5)]
+    seen = 0
+    for got, want in zip(device_prefetch(iter(batches)), batches):
+        # work on the consumer's stream between batches, as a step does
+        torch.matmul(torch.randn(2048, 2048, device="cuda"), torch.randn(2048, 2048, device="cuda"))
+        for k, v in want.items():
+            assert got[k].is_cuda and torch.equal(got[k].cpu(), torch.from_numpy(v)), k
+        seen += 1
+    assert seen == 5
