@@ -144,6 +144,20 @@
    bit; times each beside cuBLAS's float32 x @ w.T; then two float32 steps
    with conv1x1_fuse_min_cin=512: step-0 loss within rel 1e-5 of the float32
    exact step's, #10 launched 15 times per step.
+16. right after the cache-fed phase of 3, runs the pre-training entry
+   point (``simhand_tpu_torch.experiments.main.main``) in this process on
+   that phase's cache, with RECIPES.md's flags at full width (simhand_w,
+   linear/mpjpe/pos_neg, original joints, crop/resize/rotate, ResNet-50,
+   B = 256 pairs, --device_augment --use_pallas, one epoch, train_ratio
+   0.875) and its runs under build/: 8 steps, a finite epoch loss and
+   contrastive_loss_val, #2 launched 8 + 1 times and #4 8 times, a
+   checkpoint at step 8, no cv2 imported; its --export_torch file loads
+   with strict=True into a fresh ResNet-50 and equals the encoder bit for
+   bit; --resume --max_steps 2 restores step 8 bit for bit and ends at
+   step 10; --fault_inject_preempt_step 3 saves step 3 and stops; --eval
+   twice gives the same finite loss. Prints the entry point's ms/step and
+   pairs/s over steps 2-8 (a sync only at both ends) beside phase 3's
+   composed step, the run's epoch line and each checkpoint save's seconds.
 
 Any failure ends the run with a non-zero exit code. The last line of the
 output is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -158,6 +172,7 @@ import copy
 import dataclasses
 import functools
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -874,6 +889,182 @@ def cache_fed_path(seed: int, state, pre_batch) -> dict:
     perf["augment_share_of_composed_kernels"] = (
         perf["augment_main_device_ms"] / perf["composed_profile_kernel_ms"])
     return perf
+
+
+class LogLines(logging.Handler):
+    """Keeps the messages of the records it is given."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def entry_point_path(seed: int, composed_ms: float) -> tuple[dict, dict]:
+    """The pre-training entry point, in this process, on cache_fed_path's
+    cache at full width: the training run (with the export), a resume, a
+    preemption drill under another experiment name and two evaluations.
+    Returns its perf record and the launches of #2 and #4 in the training
+    run."""
+    import importlib
+    import os
+    import shutil
+
+    import torch
+
+    from simhand_tpu_torch import constants, native
+    from simhand_tpu_torch.experiments import config as cfg
+    from simhand_tpu_torch.experiments import main as entry
+    from simhand_tpu_torch.losses import ntxent_kernels as K
+    from simhand_tpu_torch.models.resnet import RESNETS
+    from simhand_tpu_torch.train.checkpoint import CheckpointManager
+
+    base = native.BUILD_DIR / f"entry_point_{seed}"
+    shutil.rmtree(base, ignore_errors=True)
+    os.environ["BASE_PATH"] = str(base)
+    importlib.reload(constants)
+    export = base / "resnet50_simhand.pth"
+    argv = ["--experiment_type", "simhand_w", "--weight_type", "linear", "--diff_type", "mpjpe",
+            "--pos_neg", "pos_neg", "--joints_type", "original", "--crop", "--resize",
+            "--rotate", "-sources", "synthetic",
+            "--cache_dir", str(native.BUILD_DIR / f"cache_fed_{seed}"), "--device_augment",
+            "--use_pallas", "-batch_size", str(PAIRS), "-resnet_size", RESNET, "-epochs", "1",
+            "-train_ratio", "0.875", "-seed", str(seed)]
+    tp = cfg.update_train_params(entry.get_general_args(argv),
+                                 cfg.read_json(cfg.TRAINING_CONFIG_PATH))
+    name = cfg.prepare_name("simhand_w_", tp)
+    steps = CACHE_IMAGES // PAIRS
+
+    marks, saves, metrics, eval_losses = {}, [], {}, []
+    real_make, real_save = entry.make_train_step, CheckpointManager.save
+    real_log, real_eval = entry.MetricLogger.log_metrics, entry.make_eval_step
+
+    # the train step, timed from step 2 to the last step of the first run
+    def timing_make(*a, **k):
+        step = real_make(*a, **k)
+        calls = [0]
+
+        def timed_step(state, batch):
+            calls[0] += 1
+            if calls[0] == 2:
+                torch.cuda.synchronize()
+                marks["t0"] = time.perf_counter()
+            out = step(state, batch)
+            if calls[0] == steps:
+                torch.cuda.synchronize()
+                marks["t1"] = time.perf_counter()
+            return out
+
+        return timed_step
+
+    def recording_eval(*a, **k):
+        evaluate = real_eval(*a, **k)
+
+        def recorded(state, batch):
+            out = evaluate(state, batch)
+            eval_losses.append(out["contrastive_loss"])
+            return out
+
+        return recorded
+
+    def timing_save(self, step, state, m):
+        t0 = time.perf_counter()
+        wrote = real_save(self, step, state, m)
+        if wrote:
+            saves.append((step, time.perf_counter() - t0))
+        return wrote
+
+    def recording_log(self, m, step):
+        metrics.update({k: float(v) for k, v in m.items()})
+        return real_log(self, m, step)
+
+    lines = LogLines()
+    log = logging.getLogger("simhand_tpu_torch")
+    log.addHandler(lines)
+    entry.make_train_step, CheckpointManager.save = timing_make, timing_save
+    entry.MetricLogger.log_metrics, entry.make_eval_step = recording_log, recording_eval
+    try:
+        K.reset_launches()
+        state = entry.main(argv + ["--export_torch", str(export)])
+        launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+        ms = (marks["t1"] - marks["t0"]) / (steps - 1) * 1e3
+        epoch_line = next(line for line in lines.lines if line.startswith("epoch 0:"))
+        train_saves, train_metrics = list(saves), dict(metrics)
+        ckpt = base / "saved_models" / name / "checkpoints"
+        print(f"entry point: {epoch_line}; launches {launches}; metrics {train_metrics}")
+        require(state.step == steps, f"the entry point ran {state.step} steps, not {steps}")
+        require(all(math.isfinite(train_metrics[k]) for k in ("contrastive_loss_epoch",
+                                                               "contrastive_loss_val")),
+                f"non-finite entry-point losses {train_metrics}")
+        require(launches["weighted_ntxent_denominator"] == steps + 1
+                and launches["weighted_grad_rows"] == steps,
+                f"#2/#4 launches in the entry point's run: {launches}")
+        require(CheckpointManager(str(ckpt)).all_steps() == [steps],
+                f"no checkpoint at step {steps} under {ckpt}")
+        require(sys.modules.get("cv2") is None, "the entry point imported cv2")
+        sd = torch.load(export, weights_only=True)
+        fresh = RESNETS[RESNET]()
+        fresh.load_state_dict(sd, strict=True)
+        enc = {k: v for k, v in state.model.encoder.state_dict().items()
+               if not k.endswith("num_batches_tracked")}
+        require(sd.keys() == enc.keys() and all(torch.equal(sd[k], enc[k].cpu()) for k in sd),
+                "the exported encoder differs from the state's")
+
+        real_restore = CheckpointManager.restore
+
+        def equal_to_trained(self, st, step=None):
+            out = real_restore(self, st, step)
+            got, want = out.model.state_dict(), state.model.state_dict()
+            require(all(torch.equal(got[k], want[k]) for k in want)
+                    and all(torch.equal(a, b) for a, b in zip(
+                        out.optimizer.state_dict()["mu"] + out.optimizer.state_dict()["nu"],
+                        state.optimizer.mu + state.optimizer.nu))
+                    and out.step == steps,
+                    "the resumed state differs from the saved one")
+            marks["restored"] = out.step
+            return out
+
+        CheckpointManager.restore = equal_to_trained
+        try:
+            resumed = entry.main(argv + ["--resume", "--max_steps", "2"])
+        finally:
+            CheckpointManager.restore = real_restore
+        require(marks.get("restored") == steps and resumed.step == steps + 2,
+                f"resume: restored {marks.get('restored')}, ended at {resumed.step}")
+        del resumed
+        preempted = entry.main(argv + ["--fault_inject_preempt_step", "3",
+                                       "-experiment_name", "entry_preempt"])
+        pre_ckpt = base / "saved_models" / "entry_preempt" / "checkpoints"
+        require(preempted.step == 3 and CheckpointManager(str(pre_ckpt)).all_steps() == [3],
+                f"preemption drill: step {preempted.step}")
+        del preempted
+        evals = []
+        for _ in range(2):
+            eval_losses.clear()
+            entry.main(argv + ["--eval"])
+            evals.append([float(v) for v in eval_losses])
+        require(evals[0] == evals[1] and len(evals[0]) == steps
+                and all(math.isfinite(v) for v in evals[0]),
+                f"the entry point's evaluation is not repeatable: {evals}")
+    finally:
+        entry.make_train_step, CheckpointManager.save = real_make, real_save
+        entry.MetricLogger.log_metrics, entry.make_eval_step = real_log, real_eval
+        log.removeHandler(lines)
+
+    perf = {"steps": steps, "step_ms": ms, "pairs_per_s": PAIRS / ms * 1e3,
+            "composed_step_ms": composed_ms, "epoch_line": epoch_line,
+            "epoch_loss": train_metrics["contrastive_loss_epoch"],
+            "val_loss": train_metrics["contrastive_loss_val"],
+            "eval_loss": float(sum(evals[0]) / len(evals[0])),
+            "save_s": [s for _, s in train_saves], "saves": saves, "launches": launches}
+    print(f"entry point: {ms:.2f} ms/step, {PAIRS / ms * 1e3:.1f} pairs/s over steps 2-{steps} "
+          f"(syncs at both ends only); phase 3's composed step {composed_ms:.2f} ms; "
+          f"checkpoint saves {[(st, round(sec, 3)) for st, sec in saves]} s; eval "
+          f"{perf['eval_loss']}")
+    del state
+    return perf, launches
 
 
 def ntxent_launches_a_step(name: str) -> int:
@@ -2311,6 +2502,7 @@ def main() -> int:
     block_report = block_kernel_phase(args.seed)
     state, batch, main_launches, perf = main_path(args.seed)
     cache_fed_perf = cache_fed_path(args.seed, state, batch)
+    entry_perf, entry_launches = entry_point_path(args.seed, cache_fed_perf["composed_ms"])
     bn_launches, bn_perf = epilogue_path(args.seed, state, batch, perf["step0_loss"])
     fused_bn_launches, fused_bn_perf = fused_bn_path(args.seed, state, batch, perf["step0_loss"])
     conv_launches, conv_perf = conv1x1_path(args.seed, state, batch)
@@ -2329,6 +2521,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES["ntxent"],
             "replaces": REPLACES[name], "launches": path_launches[name],
             **shapes[MAIN_SHAPE], "library_ms": None, "at": shapes,
+            **({"entry_point_launches": entry_launches[name]} if name in entry_launches
+               and name.startswith("weighted") else {}),
         })
     for name, shapes in bn_report.items():
         main_row = shapes[f"{BN_MAIN_SHAPE[name]}_bf16"]
@@ -2386,6 +2580,7 @@ def main() -> int:
               f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.4f}")
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"step": perf, "cache_fed_step": cache_fed_perf,
+                      "entry_point": entry_perf,
                       "epilogue_step": bn_perf, "fused_bn_step": fused_bn_perf,
                       "conv1x1_step": conv_perf, "conv1x1_f32_step": f32_perf,
                       "plain_family_step": plain_perf,

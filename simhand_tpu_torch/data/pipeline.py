@@ -1,16 +1,27 @@
-"""Raw pre-training batches (counterpart of ``simhand_tpu/data/pipeline.py``,
-its raw route: the production input path with augmentation on the card).
+"""Pre-training samples and batches (counterpart of
+``simhand_tpu/data/pipeline.py``).
 
-``PretrainDataset.raw_batch`` assembles both views' uint8 crops, pixel
-joints and normalised joints straight off a packed cache source with the
-native gather; ``batch_iterator(..., raw=True)`` yields those batches from
-a bounded window of at most two worker threads, and ``data.prefetch``
-moves them to the card, where ``data.augment.prepare_views`` augments them
-inside the train step.
+``PretrainDataset`` routes each index through the experiment type's prep
+and gives the batch dict of the train step:
 
-The host-augment and supervised routes (``__getitem__``, ``_supervised``)
-need the JAX package's ``HostAugmenter``, which reads and writes through
-``cv2``, and are not ported yet.
+  transformed_image{1,2} : float32 (H, W, 3), ImageNet-normalized
+  joints{1,2}_ori        : raw normalized keypoints x resize_shape
+  joints{1,2}_aug        : post-augmentation 2.5D joints
+  angle_{1,2}, jitter_{x,y}_{1,2} : per-view augment params
+
+Two routes, as in the JAX package:
+  * the raw route, the production path: ``raw_batch`` assembles both
+    views' uint8 crops and joints straight off a packed cache source with
+    the native gather; ``batch_iterator(..., raw=True)`` yields those
+    batches, ``data.prefetch`` moves them to the card and
+    ``data.augment.prepare_views`` augments them inside the train step;
+  * the host route (``__getitem__``, ``batch_iterator(raw=False)``): the
+    reference's OpenCV chain (``HostAugmenter``) on the host, drawing from
+    a generator seeded by (seed, epoch, index), so it gives the JAX
+    package's batches bit for bit. It needs ``cv2``.
+
+The supervised route (``_supervised``) belongs to fine-tuning and is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -21,7 +32,12 @@ from typing import Iterator, Sequence
 import numpy as np
 
 from simhand_tpu_torch.core.joints import CHILD_JOINT, PARENT_JOINT
-from simhand_tpu_torch.data.augment_cv2 import AugmentFlags, AugmentParams
+from simhand_tpu_torch.data.augment_cv2 import (
+    AppliedParams,
+    AugmentFlags,
+    AugmentParams,
+    HostAugmenter,
+)
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -57,7 +73,7 @@ def convert_to_2_5d_np(K: np.ndarray, joints_3d: np.ndarray) -> np.ndarray:
 
 
 class PretrainDataset:
-    """Index-addressable raw sample pairs for any experiment type."""
+    """Index-addressable prepared samples for any experiment type."""
 
     def __init__(
         self,
@@ -66,15 +82,54 @@ class PretrainDataset:
         flags: AugmentFlags,
         params: AugmentParams,
         seed: int = 0,
+        use_palm: bool = False,
     ):
         self.source = source
         self.experiment_type = experiment_type
+        self.augmenter = HostAugmenter(flags, params)
         self.flags = flags
         self.params = params
         self.seed = seed
+        # the supervised route's palm target (not ported yet)
+        self.use_palm = use_palm
 
     def __len__(self) -> int:
         return len(self.source)
+
+    def _rng(self, idx: int, epoch: int = 0) -> np.random.Generator:
+        return np.random.default_rng(
+            np.random.SeedSequence([self.seed, epoch, idx])
+        )
+
+    def _prep_view(self, sample: dict, rng, override_jitter):
+        img, j_aug, _, applied = self.augmenter.transform(
+            sample["image"],
+            convert_to_2_5d_np(sample["K"], sample["joints3D"]),
+            rng,
+            override_angle=None,
+            override_jitter=override_jitter,
+        )
+        return normalize_image(img), j_aug, applied
+
+    def _ori_joints(self, sample: dict) -> np.ndarray:
+        j = sample["joints_raw"].copy()
+        j[:, 0] *= self.params.resize_shape[1]
+        j[:, 1] *= self.params.resize_shape[0]
+        return j
+
+    @staticmethod
+    def _param_dict(applied: AppliedParams, view: int) -> dict:
+        out = {}
+        for key in ("angle", "jitter_x", "jitter_y", "h", "s", "a", "b"):
+            v = getattr(applied, key)
+            if v is not None:
+                out[f"{key}_{view}"] = np.float32(v)
+        return out
+
+    def _supervised(self, sample: dict, rng) -> dict:
+        raise NotImplementedError(
+            "the supervised route belongs to fine-tuning and is not ported yet "
+            "(ROADMAP.md Queue 1 item 3)")
 
     def raw_batch(self, indices) -> dict | None:
         """A raw pair batch straight off a packed cache source (the native
@@ -119,6 +174,61 @@ class PretrainDataset:
             "joints_raw2": positive["joints_raw"].astype(np.float32),
         }
 
+    def __getitem__(self, idx: int, epoch: int = 0) -> dict:
+        rng = self._rng(idx, epoch)
+        etype = self.experiment_type
+        anchor = self.source[idx]
+
+        if etype == "supervised":
+            return self._supervised(anchor, rng)
+
+        if etype in SIMILAR_PAIR_TYPES:
+            positive = self.source[int(anchor["positive_sample_idx"])]
+        else:
+            positive = anchor
+
+        override_jitter = None if self.flags.crop else [0, 0]
+
+        img1, j1_aug, p1 = self._prep_view(anchor, rng, override_jitter)
+        img2, j2_aug, p2 = self._prep_view(positive, rng, override_jitter)
+
+        out = {"transformed_image1": img1, "transformed_image2": img2}
+        if etype in WEIGHTED_TYPES:
+            out["joints1_ori"] = self._ori_joints(anchor)
+            out["joints2_ori"] = self._ori_joints(positive)
+            out["joints1_aug"] = j1_aug.astype(np.float32)
+            out["joints2_aug"] = j2_aug.astype(np.float32)
+        if etype == "simhand_vis":
+            # companion views with the reference's default augmenter: every
+            # flag off but resize, never rotated, cropped (with the
+            # zero-jitter override) only when the main crop flag is off.
+            # Its joints{1,2}_ori are these transforms' joints, not the
+            # raw-scaled joints of the other _w preps.
+            geo = HostAugmenter(
+                AugmentFlags(crop=False, resize=self.flags.resize,
+                             rotate=False),
+                self.params,
+            )
+            v1, jo1, _, _ = geo.transform(
+                anchor["image"],
+                convert_to_2_5d_np(anchor["K"], anchor["joints3D"]), rng,
+                override_jitter=override_jitter,
+            )
+            v2, jo2, _, _ = geo.transform(
+                positive["image"],
+                convert_to_2_5d_np(positive["K"], positive["joints3D"]),
+                rng,
+                override_jitter=override_jitter,
+            )
+            out["image1"] = normalize_image(v1)
+            out["image2"] = normalize_image(v2)
+            out["joints1_ori"] = jo1.astype(np.float32)
+            out["joints2_ori"] = jo2.astype(np.float32)
+        if etype in PARAM_TYPES:
+            out.update(self._param_dict(p1, 1))
+            out.update(self._param_dict(p2, 2))
+        return out
+
 
 def _collate(samples: Sequence[dict]) -> dict:
     keys = samples[0].keys()
@@ -137,13 +247,10 @@ def batch_iterator(
     sample_weights: np.ndarray | None = None,
 ) -> Iterator[dict]:
     """Prefetching threaded batch loader, in the JAX package's order for the
-    same seed and epoch. With ``sample_weights``, indices are drawn with
-    replacement. Only ``raw=True`` is ported: the host-augmented batches
-    need ``HostAugmenter``."""
-    if not raw:
-        raise NotImplementedError(
-            "host-augmented batches need HostAugmenter (cv2), which is not ported; "
-            "pass raw=True and augment on the card")
+    same seed and epoch: raw pair batches (``raw=True``) or host-augmented
+    ones. cv2 releases the GIL in its hot loops, so threads overlap the
+    host route's work. With ``sample_weights``, indices are drawn with
+    replacement (the reference's weighted sampler over a concat)."""
     n = len(dataset)
     rng_order = np.random.default_rng([seed, epoch])
     if sample_weights is not None:
@@ -154,10 +261,10 @@ def batch_iterator(
             rng_order.shuffle(order)
     nb = n // batch_size if drop_last else -(-n // batch_size)
 
-    # raw batches are assembled by the OpenMP gather across all cores; more
-    # than two iterator threads on top oversubscribe the host (the JAX
-    # package measured 8,455 samples/s at 2 threads against 648 at 16)
-    num_threads = min(num_threads, 2)
+    if raw:
+        # raw batches are assembled by the OpenMP gather across all cores;
+        # more than two iterator threads on top oversubscribe the host
+        num_threads = min(num_threads, 2)
     n_workers = min(num_threads, nb) or 1
     # backpressure: work is issued in a bounded window ahead of the
     # consumer, so at most ~window batches are ever held
@@ -175,9 +282,12 @@ def batch_iterator(
                 return
             try:
                 idxs = order[b * batch_size : (b + 1) * batch_size]
-                batch = dataset.raw_batch(idxs)
-                if batch is None:
-                    batch = _collate([dataset.raw_pair(int(i)) for i in idxs])
+                if raw:
+                    batch = dataset.raw_batch(idxs)
+                    if batch is None:
+                        batch = _collate([dataset.raw_pair(int(i)) for i in idxs])
+                else:
+                    batch = _collate([dataset.__getitem__(int(i), epoch) for i in idxs])
             except BaseException as e:  # handed to the consumer, which raises it
                 with done_lock:
                     errors.append(e)

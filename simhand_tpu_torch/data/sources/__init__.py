@@ -1,6 +1,7 @@
+from simhand_tpu_torch.data.sources.hand100m import Hand100MSource
 from simhand_tpu_torch.data.sources.synthetic import (
     SyntheticHandSource,
     generate_synthetic_hand100m,
 )
 
-__all__ = ["SyntheticHandSource", "generate_synthetic_hand100m"]
+__all__ = ["Hand100MSource", "SyntheticHandSource", "generate_synthetic_hand100m"]

@@ -98,6 +98,30 @@ class Optimizer:
         self.acc = ([torch.zeros_like(p) for p in params]
                     if cfg.accumulate_grad_batches > 1 else None)
 
+    def state_dict(self) -> dict:
+        """The moments, the accumulator and the two counters (the chain's
+        state; its configuration is the caller's)."""
+        return {"count": self.count, "mini_step": self.mini_step,
+                "mu": list(self.mu), "nu": list(self.nu),
+                "acc": None if self.acc is None else list(self.acc)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copies ``state`` (of ``state_dict``) into this chain's tensors."""
+        if (state["acc"] is None) != (self.acc is None):
+            raise ValueError("the saved optimizer accumulates gradients differently")
+        for mine, saved in (("mu", state["mu"]), ("nu", state["nu"]), ("acc", state["acc"])):
+            tensors = getattr(self, mine)
+            if tensors is None:
+                continue
+            if len(saved) != len(tensors):
+                raise ValueError(f"{mine}: {len(saved)} saved tensors for {len(tensors)}")
+            for t, v in zip(tensors, saved):
+                if t.shape != v.shape:
+                    raise ValueError(f"{mine}: shape {tuple(v.shape)} for {tuple(t.shape)}")
+                t.copy_(v)
+        self.count, self.mini_step = int(state["count"]), int(state["mini_step"])
+
     @torch.no_grad()
     def step(self, params: list[torch.Tensor], grads: list[torch.Tensor]) -> None:
         k = self.cfg.accumulate_grad_batches

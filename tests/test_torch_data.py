@@ -168,8 +168,10 @@ def test_batch_iterator_shuts_down_when_abandoned(corpus):
     with pytest.raises(RuntimeError, match="corrupt shard"):
         for _ in batch_iterator(broken, batch_size=4, shuffle=False, raw=True):
             pass
-    with pytest.raises(NotImplementedError):
-        next(batch_iterator(ds, batch_size=4))
+    # the host route (raw=False) is ported too: host-augmented batches
+    host = batch_iterator(ds, batch_size=4)
+    assert next(host)["transformed_image1"].shape == (4, 128, 128, 3)
+    host.close()
 
 
 def test_synthetic_corpus_matches_jax(tmp_path):
