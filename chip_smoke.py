@@ -158,6 +158,27 @@
    twice gives the same finite loss. Prints the entry point's ms/step and
    pairs/s over steps 2-8 (a sync only at both ends) beside phase 3's
    composed step, the run's epoch line and each checkpoint save's seconds.
+17. right after 16, runs the detnet fine-tune entry point
+   (``simhand_tpu_torch.finetune.train.main``) in this process at full
+   width (synthetic, ResNet-50, 128x128, bf16, B = 128, 4 epochs of 2 steps,
+   an evaluation every 2) under build/finetune_<seed>: every det_* part of
+   every step finite, a checkpoint at step 8, no cv2 imported; its
+   detnet.pth loads with strict=True into a fresh DetNet and equals the
+   model bit for bit; ``finetune.evaluate.main`` gives the same metrics
+   twice from the checkpoint and once from the .pth; --resume --max_steps 9
+   restores step 8 bit for bit (parameters, statistics, both moments) and
+   ends at step 9; then --bn_variant fused_pallas for 2 steps: kernel #9
+   launched 53 times a step (its launch counter), each launch's sums within
+   rel 1e-5 of its plain version on the same inputs (the fine-tune step's
+   own sites), step 0's det_total (the forward's) within rel 5e-3 of the
+   exact run's on the same first batch; the builder's image
+   stage on the card equal to the CPU's on one batch of the same host draws;
+   the downstream head (RN25DWithMLPRef, ResNet-50, float32, B = 64, 128x128)
+   on the card within rel 1e-4 of its CPU forward. Prints the run's ms/step
+   over steps 2-8 (a sync at both ends; with and without the evaluation and
+   save inside), img/s, the composed step (feed + step) and the step on one
+   batch held on the card in turns, the feed alone a batch split into the
+   host builder and the image stage, and the evaluations' seconds.
 
 Any failure ends the run with a non-zero exit code. The last line of the
 output is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -1065,6 +1086,281 @@ def entry_point_path(seed: int, composed_ms: float) -> tuple[dict, dict]:
           f"{perf['eval_loss']}")
     del state
     return perf, launches
+
+
+# the fine-tune phase: finetune.train at full width (ResNet-50, 128x128, bf16)
+# on FT_BATCH synthetic samples a step, FT_EPOCHS epochs of 2 steps, an
+# evaluation every FT_EVAL_EVERY epochs; the step-0 loss of
+# --bn_variant fused_pallas against the exact run's (PERF.md section 2's
+# limit for bn_fused="pallas" against exact); the downstream head at B =
+# FT_HEAD_BATCH on the card against its CPU forward
+FT_BATCH, FT_EPOCHS, FT_EVAL_EVERY, FT_TURNS, FT_HEAD_BATCH = 128, 4, 2, 2, 64
+FT_HEAD_RTOL = 1e-4
+FT_VAL = 64            # the trainer's synthetic val set
+
+
+def finetune_path(seed: int) -> tuple[dict, dict]:
+    """The detnet fine-tune and evaluation entry points in this process at
+    full width, their runs under build/finetune_<seed>: the exact run (its
+    export, a resume), the fused_pallas run with kernel #9, the image stage
+    on the card against the CPU, two evaluations of the checkpoint and one
+    of the export, and the downstream head on the card against the CPU.
+    Returns its perf record and #9's launches in the fused_pallas run."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from simhand_tpu_torch import native
+    from simhand_tpu_torch.finetune import datasets as D
+    from simhand_tpu_torch.finetune import evaluate as fe
+    from simhand_tpu_torch.finetune import image_stage as S
+    from simhand_tpu_torch.finetune import train as ft
+    from simhand_tpu_torch.finetune.detnet import DetNet
+    from simhand_tpu_torch.models import fused_bn as FB
+    from simhand_tpu_torch.models.heads import RN25DWithMLPRef
+    from simhand_tpu_torch.train.checkpoint import CheckpointManager
+    from simhand_tpu_torch.train.state import init_weights
+
+    base = native.BUILD_DIR / f"finetune_{seed}"
+    shutil.rmtree(base, ignore_errors=True)
+    out, pallas_out = str(base / "exact"), str(base / "fused_pallas")
+    argv = ["--dataset", "synthetic", "--backbone", RESNET, "--batch_size", str(FT_BATCH),
+            "--epochs", str(FT_EPOCHS), "--eval_every", str(FT_EVAL_EVERY)]
+    steps = FT_EPOCHS * 2
+    dev = torch.device("cuda")
+
+    marks, parts_log, evals, saves = {}, [], [], []
+    real_make, real_eval, real_save = (ft.make_detnet_train_step, ft.evaluate_detnet,
+                                       CheckpointManager.save)
+
+    def timing_make(*a, **k):
+        step = real_make(*a, **k)
+        calls = [0]
+
+        def timed_step(state, batch):
+            calls[0] += 1
+            if calls[0] == 2:
+                torch.cuda.synchronize()
+                marks["t0"] = time.perf_counter()
+            state, parts = step(state, batch)
+            parts_log.append({k: float(v) for k, v in parts.items()})
+            if calls[0] == steps:
+                torch.cuda.synchronize()
+                marks["t1"] = time.perf_counter()
+            return state, parts
+
+        return timed_step
+
+    def timing_eval(*a, **k):
+        t0 = time.perf_counter()
+        metrics = real_eval(*a, **k)
+        evals.append((time.perf_counter() - t0, metrics))
+        return metrics
+
+    def timing_save(self, step, state, m):
+        t0 = time.perf_counter()
+        wrote = real_save(self, step, state, m)
+        if wrote:
+            saves.append((step, time.perf_counter() - t0))
+        return wrote
+
+    ft.make_detnet_train_step, ft.evaluate_detnet = timing_make, timing_eval
+    CheckpointManager.save = timing_save
+    try:
+        state = ft.main(argv + ["--out_dir", out])
+        window_evals = [s for s, _ in evals]
+        window_saves = [s for st, s in saves if 2 <= st < steps]
+        run_ms = (marks["t1"] - marks["t0"]) / (steps - 1) * 1e3
+        step_ms = ((marks["t1"] - marks["t0"] - sum(window_evals[:-1]) - sum(window_saves))
+                   / (steps - 1) * 1e3)
+        exact_loss0 = parts_log[0]["det_total"]
+        require(state.step == steps and len(parts_log) == steps,
+                f"the fine-tune run took {state.step} steps, not {steps}")
+        require(all(math.isfinite(v) for p in parts_log for v in p.values()),
+                f"non-finite det_* parts {parts_log}")
+        ckpt = CheckpointManager(os.path.join(out, "checkpoints"), metric="det_total")
+        require(ckpt.all_steps() == [steps], f"checkpoints {ckpt.all_steps()}, not [{steps}]")
+        require(sys.modules.get("cv2") is None, "the fine-tune run imported cv2")
+        sd = torch.load(os.path.join(out, "detnet.pth"), weights_only=True)
+        fresh = DetNet(RESNET, dtype=torch.bfloat16)
+        fresh.load_state_dict(sd, strict=True)
+        live = {k: v for k, v in state.model.state_dict().items()
+                if not k.endswith("num_batches_tracked")}
+        require(sd.keys() == live.keys() and all(torch.equal(sd[k], live[k].cpu()) for k in sd),
+                "the exported detnet differs from the trained one")
+        print(f"fine-tune: {steps} steps, det_total {[p['det_total'] for p in parts_log]}; "
+              f"evals {[(round(s, 3), m) for s, m in evals]}; saves {saves}")
+
+        # evaluation main: the checkpoint twice, the export once
+        t0 = time.perf_counter()
+        ev = [fe.main(["--dataset", "synthetic", "--backbone", RESNET,
+                       "--checkpoint", os.path.join(out, "checkpoints")]) for _ in range(2)]
+        eval_main_s = (time.perf_counter() - t0) / 2
+        ev.append(fe.main(["--dataset", "synthetic", "--backbone", RESNET,
+                           "--pretrain", os.path.join(out, "detnet.pth")]))
+        require(ev[0] == ev[1] == ev[2] and all(math.isfinite(v) for v in ev[0].values()
+                                                if isinstance(v, float)),
+                f"the evaluations differ: {ev}")
+
+        # --resume: the state of step `steps` restored bit for bit, one more step
+        real_restore = CheckpointManager.restore
+
+        def equal_to_trained(self, st, step=None):
+            got = real_restore(self, st, step)
+            a, b = got.model.state_dict(), state.model.state_dict()
+            moments = zip(got.optimizer.mu + got.optimizer.nu,
+                          state.optimizer.mu + state.optimizer.nu)
+            require(all(torch.equal(a[k], b[k]) for k in b)
+                    and all(torch.equal(x, y) for x, y in moments)
+                    and got.step == steps and got.optimizer.count == steps,
+                    "the resumed fine-tune state differs from the saved one")
+            marks["restored"] = got.step
+            return got
+
+        CheckpointManager.restore = equal_to_trained
+        try:
+            resumed = ft.main(argv[:-4] + ["--epochs", str(FT_EPOCHS + 1), "--eval_every", "9",
+                                           "--resume", "--max_steps", str(steps + 1),
+                                           "--out_dir", out])
+        finally:
+            CheckpointManager.restore = real_restore
+        require(marks.get("restored") == steps and resumed.step == steps + 1,
+                f"fine-tune resume: restored {marks.get('restored')}, ended at {resumed.step}")
+        del resumed
+    finally:
+        ft.make_detnet_train_step, ft.evaluate_detnet = real_make, real_eval
+        CheckpointManager.save = real_save
+
+    # the composed step (feed + step) and the step on one batch held on the
+    # card, in turns, from the trained state; the feed alone, split
+    ds = D.SyntheticPoseDataset(n=2 * FT_BATCH, seed=0)
+    builder = D.DetnetSampleBuilder(train=True)
+    step_fn = ft.make_detnet_train_step(state.model)
+    held = ft.to_device(next(D.detnet_batch_iterator(ds, builder, FT_BATCH, device=dev)), dev)
+
+    def composed(n):
+        it = D.detnet_batch_iterator(ds, builder, FT_BATCH, epoch=7, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step_fn(state, ft.to_device(next(it), dev))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    def on_held(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step_fn(state, held)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    on_held(1)
+    turns = {"composed": [], "held": []}
+    for _ in range(FT_TURNS):
+        turns["composed"].append(composed(2))
+        turns["held"].append(on_held(3))
+    host_ms, stage_ms = [], []
+    for b in range(2):
+        t0 = time.perf_counter()
+        built = [builder.build(ds[i], np.random.default_rng([0, 9, i]))
+                 for i in range(b * FT_BATCH, (b + 1) * FT_BATCH)]
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S.image_stage([f for _, f, _ in built], [d for _, _, d in built], 128, dev)
+        torch.cuda.synchronize()
+        stage_ms.append((time.perf_counter() - t0) * 1e3)
+    # the image stage on the card against the CPU on the same host draws
+    frames, draws = [f for _, f, _ in built], [d for _, _, d in built]
+    on_card = S.image_stage(frames, draws, 128, dev).cpu()
+    on_cpu = S.image_stage(frames, draws, 128, "cpu")
+    stage_mismatch = int((on_card != on_cpu).sum())
+    require(stage_mismatch == 0,
+            f"the image stage on the card differs from the CPU at {stage_mismatch} values")
+    del step_fn, held, state
+
+    # the kernel route: --bn_variant fused_pallas, kernel #9 in the encoder's
+    # backward, each launch held against its plain version on its own inputs
+    pallas_log, site_errs = [], []
+    real_launch = FB._launch
+
+    def checked_launch(x2d, dy2d, mu, inv):
+        got = real_launch(x2d, dy2d, mu, inv)
+        want = FB.bn_backward_reduces_plain(x2d, dy2d, mu, inv)
+        site_errs.append((tuple(x2d.shape), max(
+            float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(got, want))))
+        return got
+
+    ft.make_detnet_train_step = lambda *a, **k: _logging_step(real_make(*a, **k), pallas_log)
+    FB._launch = checked_launch
+    try:
+        FB.reset_launches()
+        ft.main(argv[:-4] + ["--epochs", "1", "--eval_every", "9", "--max_steps", "2",
+                             "--bn_variant", "fused_pallas", "--out_dir", pallas_out])
+        launches = {fn.__name__: fn.launches for fn in FB.KERNELS}
+    finally:
+        ft.make_detnet_train_step = real_make
+        FB._launch = real_launch
+    # step 0's det_total comes out of the forward (#9 runs in the backward):
+    # this holds the fused forward to the exact one, not the kernel
+    pallas_rel = abs(pallas_log[0] / exact_loss0 - 1)
+    sites_rel = max(e for _, e in site_errs)
+    worst_site = max(site_errs, key=lambda t: t[1])[0]
+    print(f"fine-tune fused_pallas: det_total {pallas_log}, step 0 rel {pallas_rel:.3e} of "
+          f"exact's {exact_loss0}; launches {launches}; #9 against its plain version at each "
+          f"of its {len(site_errs)} launches ({len({m for m, _ in site_errs})} distinct (M, C)): "
+          f"worst rel {sites_rel:.3e} at {worst_site}")
+    require(launches["bn_backward_reduces"] == FUSED_BN_PER_STEP * 2,
+            f"#9 launched {launches['bn_backward_reduces']} times in 2 fine-tune steps, not "
+            f"{FUSED_BN_PER_STEP * 2}")
+    require(len(site_errs) == FUSED_BN_PER_STEP * 2 and sites_rel <= 1e-5,
+            f"#9 on the fine-tune step: {len(site_errs)} launches checked, worst sums rel err "
+            f"{sites_rel:.3e} at {worst_site} against its plain version")
+    require(pallas_rel <= LOSS_TWO_ROUNDING_RTOL,
+            f"fused_pallas step 0 det_total {pallas_log[0]} against exact {exact_loss0}")
+
+    # the downstream head: ResNet-50, float32, B = FT_HEAD_BATCH, card against CPU
+    head = RN25DWithMLPRef(RESNET)
+    init_weights(head, torch.Generator().manual_seed(seed))
+    x = torch.rand((FT_HEAD_BATCH, 128, 128, 3), generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        want = head.eval()(x)["kp3d"]
+        got = head.to(dev)(x.to(dev))["kp3d"].cpu()
+    head_err = float((got - want).abs().max() / want.abs().max())
+    require(head_err <= FT_HEAD_RTOL, f"RN25DWithMLPRef on the card: rel {head_err:.3e}")
+
+    perf = {"steps": steps, "batch": FT_BATCH,
+            "run_ms_per_step": run_ms, "step_ms": step_ms, "img_per_s": FT_BATCH / step_ms * 1e3,
+            "composed_ms": turns["composed"], "held_ms": turns["held"],
+            "feed_host_ms": host_ms, "image_stage_ms": stage_ms,
+            "eval_s_in_run": window_evals, "evaluate_main_s": eval_main_s,
+            "eval_img_per_s": FT_VAL / window_evals[-1], "saves": saves,
+            "step0_det_total": exact_loss0,
+            "fused_pallas_step0": pallas_log[0], "fused_pallas_rel": pallas_rel,
+            "bn_backward_reduces_rel": sites_rel,
+            "bn_backward_reduces_sites": sorted({m for m, _ in site_errs}),
+            "launches": launches, "image_stage_card_vs_cpu": stage_mismatch,
+            "head_rel_err": head_err, "metrics": ev[0]}
+    print(f"fine-tune: {run_ms:.2f} ms/step over steps 2-{steps} (evaluation and saves "
+          f"inside: {step_ms:.2f} ms/step without them, {FT_BATCH / step_ms * 1e3:.1f} img/s); "
+          f"in turns composed {turns['composed']} / held {turns['held']} ms; feed host "
+          f"{host_ms} ms, image stage {stage_ms} ms a batch; evaluations {window_evals} s "
+          f"({FT_VAL / window_evals[-1]:.1f} img/s), evaluate main {eval_main_s:.2f} s; "
+          f"head rel err {head_err:.2e}")
+    return perf, launches
+
+
+def _logging_step(step, log):
+    def run(state, batch):
+        state, parts = step(state, batch)
+        log.append(float(parts["det_total"]))
+        return state, parts
+
+    return run
 
 
 def ntxent_launches_a_step(name: str) -> int:
@@ -2503,6 +2799,7 @@ def main() -> int:
     state, batch, main_launches, perf = main_path(args.seed)
     cache_fed_perf = cache_fed_path(args.seed, state, batch)
     entry_perf, entry_launches = entry_point_path(args.seed, cache_fed_perf["composed_ms"])
+    finetune_perf, finetune_launches = finetune_path(args.seed)
     bn_launches, bn_perf = epilogue_path(args.seed, state, batch, perf["step0_loss"])
     fused_bn_launches, fused_bn_perf = fused_bn_path(args.seed, state, batch, perf["step0_loss"])
     conv_launches, conv_perf = conv1x1_path(args.seed, state, batch)
@@ -2543,6 +2840,8 @@ def main() -> int:
         "launches": fused_bn_launches["bn_backward_reduces"],
         **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "library_device_ms")},
+        "finetune_launches": finetune_launches["bn_backward_reduces"],
+        "finetune_rel_err": finetune_perf["bn_backward_reduces_rel"],
         "at": fused_bn_report["bn_backward_reduces"],
     })
     for name, shapes in conv_report.items():
@@ -2580,7 +2879,7 @@ def main() -> int:
               f"plain_ms={k['plain_ms']:.4f} bound_ms={k['bound_ms']:.4f}")
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"step": perf, "cache_fed_step": cache_fed_perf,
-                      "entry_point": entry_perf,
+                      "entry_point": entry_perf, "finetune": finetune_perf,
                       "epilogue_step": bn_perf, "fused_bn_step": fused_bn_perf,
                       "conv1x1_step": conv_perf, "conv1x1_f32_step": f32_perf,
                       "plain_family_step": plain_perf,

@@ -1,8 +1,8 @@
 """PyTorch and CUDA port of ``simhand_tpu`` for one NVIDIA H100.
 
 The package mirrors the JAX package's module names (``core``, ``data``,
-``losses``, ``models``, ``ops``, ``serving``, ``train``) and imports neither
-``jax`` nor ``simhand_tpu``.
+``experiments``, ``finetune``, ``losses``, ``models``, ``ops``, ``serving``,
+``train``) and imports neither ``jax`` nor ``simhand_tpu``.
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card it raises instead of moving to the CPU.
 The four NT-Xent kernels (``csrc/ntxent.cu``), the four fused BN+ReLU

@@ -11,7 +11,9 @@ kept here as its own copy).
 
 The encoder keeps torchvision's keys under ``encoder.``; the head's are
 ``projection_head.fc1``, ``.bn1`` and ``.fc2``. The result loads with
-``strict=True``.
+``strict=True``. ``detnet_from_flax_variables`` does the same for the JAX
+``DetNet`` (the mapping of ``simhand_tpu/finetune/torch_port_detnet.py``),
+and the ``load_*`` functions read ``.pth`` files with strict loads.
 """
 from __future__ import annotations
 
@@ -70,3 +72,61 @@ def from_flax_variables(params: dict, batch_stats: dict) -> dict[str, torch.Tens
         else:
             raise ValueError(f"unexpected batch_stats leaf {(*modules, leaf)}")
     return sd
+
+
+def _bn(sd: dict, name: str, params: dict, stats: dict) -> None:
+    sd[f"{name}.weight"] = _tensor(params["scale"])
+    sd[f"{name}.bias"] = _tensor(params["bias"])
+    sd[f"{name}.running_mean"] = _tensor(stats["mean"])
+    sd[f"{name}.running_var"] = _tensor(stats["var"])
+    sd[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def detnet_from_flax_variables(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
+    """flax variables of the JAX ``DetNet`` -> a state dict of the port's
+    ``finetune.detnet.DetNet`` in the reference's minimal-hand keys (the
+    mapping of ``simhand_tpu/finetune/torch_port_detnet.py:30-63``); loads
+    with ``strict=True``. flax ``ConvTranspose`` kernels (kH, kW, I, O) are
+    applied unflipped, torch's (I, O, kH, kW) flipped: their spatial taps are
+    reversed."""
+    sd = {f"encoder.resnet.{k}": v
+          for k, v in from_flax_variables(params["encoder"], batch_stats["encoder"]).items()}
+    for i in range(3):
+        w = np.asarray(params[f"deconv{i}"]["kernel"])
+        sd[f"deconv.{3 * i}.weight"] = _tensor(w[::-1, ::-1].transpose(2, 3, 0, 1))
+        _bn(sd, f"deconv.{3 * i + 1}", params[f"deconv_bn{i}"], batch_stats[f"deconv_bn{i}"])
+    for head in ("hmap_0", "dmap_0", "lmap_0"):
+        hp, hs = params[head], batch_stats[head]
+        sd[f"{head}.project.0.weight"] = _tensor(
+            np.asarray(hp["project_conv"]["kernel"]).transpose(3, 2, 0, 1))
+        _bn(sd, f"{head}.project.1", hp["project_bn"], hs["project_bn"])
+        sd[f"{head}.prediction.weight"] = _tensor(
+            np.asarray(hp["prediction"]["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"{head}.prediction.bias"] = _tensor(hp["prediction"]["bias"])
+    return sd
+
+
+def load_torch_encoder(resnet: torch.nn.Module, path: str) -> None:
+    """Loads a torchvision-layout ResNet ``.pth`` (the released
+    ``resnet50_simhand.pth``, the port's own export, or a ``{"state_dict":
+    ...}`` wrapper of one) into ``resnet`` with ``strict=True``; the
+    classifier's ``fc.*`` keys are dropped, as the JAX loader drops them
+    (``simhand_tpu/train/torch_port.py:120``)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    resnet.load_state_dict({k: v for k, v in sd.items() if not k.startswith("fc.")},
+                           strict=True)
+
+
+def load_detnet_state_dict(model: torch.nn.Module, sd: dict) -> None:
+    """Loads a reference detnet state dict (minimal-hand keys, as
+    ``torch_state_dict_to_detnet`` reads them: the encoder under
+    ``encoder.resnet.``, or under ``encoder.`` alone) into the port's
+    ``DetNet`` with ``strict=True``."""
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    if not any(k.startswith("encoder.resnet.") for k in sd):
+        sd = {f"encoder.resnet.{k[len('encoder.'):]}" if k.startswith("encoder.") else k: v
+              for k, v in sd.items()}
+    model.load_state_dict(sd, strict=True)

@@ -1,11 +1,107 @@
-"""2-D rotation in the OpenCV convention and the augmentation's crop box
-(counterpart of ``simhand_tpu/core/geometry.py:125-197``)."""
+"""Hand geometry (counterpart of ``simhand_tpu/core/geometry.py``): the 2.5D
+<-> 3D conversion and scale-normalized root depth (arXiv:1804.09534 eq.
+6/7), 2-D rotation in the OpenCV convention and the augmentation's crop box.
+
+The 3-term products (K @ X and its inverse's) are two float32 fused
+multiply-adds in the joint order, as XLA's CPU dot computes them: each taken
+in float64 and rounded once.
+"""
 from __future__ import annotations
 
 import math
 
 import numpy as np
 import torch
+
+from simhand_tpu_torch.core.joints import CHILD_JOINT, PARENT_JOINT
+
+
+def _fma(a, b, c):
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _apply3(mat: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) matrices applied to (..., N, 3) row vectors: out[..., k, i]
+    = sum_j mat[..., i, j] vecs[..., k, j], in the order j = 0, 1, 2."""
+    m = mat[..., None, :, :]             # (..., 1, 3, 3)
+    v = vecs[..., :, None, :]            # (..., N, 1, 3)
+    return _fma(m[..., 2], v[..., 2], _fma(m[..., 1], v[..., 1], m[..., 0] * v[..., 0]))
+
+
+def _bone_length(joints_3d: torch.Tensor) -> torch.Tensor:
+    bone = joints_3d[..., CHILD_JOINT, :] - joints_3d[..., PARENT_JOINT, :]
+    sq = bone * bone
+    return torch.sqrt(sq[..., 0] + sq[..., 1] + sq[..., 2])
+
+
+def convert_to_2_5d(K: torch.Tensor, joints_3d: torch.Tensor):
+    """3D camera-space joints -> 2.5D (pixel u, v, scale-normalized rel. depth).
+
+    Args:
+      K: (..., 3, 3) camera intrinsics.
+      joints_3d: (..., 21, 3) joints in camera space.
+
+    Returns:
+      joints_25d: (..., 21, 3) — u, v in pixels; z relative to the wrist,
+        normalized by the wrist->index_mcp bone length.
+      scale: (...,) the bone length used for normalization.
+    """
+    scale = _bone_length(joints_3d)
+    proj = _apply3(K, joints_3d) / joints_3d[..., -1:]
+    z_rel = (joints_3d[..., -1] - joints_3d[..., PARENT_JOINT, -1][..., None]) / scale[..., None]
+    return torch.cat([proj[..., :2], z_rel[..., None]], dim=-1), scale
+
+
+def root_depth(joints_25d: torch.Tensor, K: torch.Tensor):
+    """Scale-normalized absolute root (wrist) depth from 2.5D joints: the
+    quadratic of arXiv:1804.09534 eq. 6/7 under the unit bone-length
+    constraint between wrist and index_mcp
+    (reference: src/data_loader/utils.py:69-108).
+
+    Returns:
+      z_root: (...,) scale-normalized root depth; K_inv: (..., 3, 3).
+    """
+    K_inv = torch.linalg.inv(K)
+    ones = torch.ones_like(joints_25d[..., :1, -1])
+
+    def back_project(j):
+        uv1 = torch.cat([joints_25d[..., j, :2], ones], dim=-1)
+        return _apply3(K_inv, uv1[..., None, :])[..., 0, :]
+
+    xyz_n = back_project(PARENT_JOINT)
+    xyz_m = back_project(CHILD_JOINT)
+    x_n, y_n = xyz_n[..., 0], xyz_n[..., 1]
+    x_m, y_m = xyz_m[..., 0], xyz_m[..., 1]
+    Z_n = joints_25d[..., PARENT_JOINT, -1]
+    Z_m = joints_25d[..., CHILD_JOINT, -1]
+    C = 1.0
+
+    a = (x_n - x_m) ** 2 + (y_n - y_m) ** 2
+    b = 2.0 * (
+        Z_n * (x_n**2 + y_n**2 - x_n * x_m - y_n * y_m)
+        + Z_m * (x_m**2 + y_m**2 - x_n * x_m - y_n * y_m)
+    )
+    c = (
+        (x_n * Z_n - x_m * Z_m) ** 2
+        + (y_n * Z_n - y_m * Z_m) ** 2
+        + (Z_n - Z_m) ** 2
+        - C
+    )
+    z_root = 0.5 * (-b + torch.sqrt(torch.clamp_min(b * b - 4.0 * a * c, 1e-6))
+                    ) / torch.clamp_min(a, 1e-6)
+    return z_root, K_inv
+
+
+def convert_2_5d_to_3d(joints_25d: torch.Tensor, scale: torch.Tensor, K: torch.Tensor,
+                       z_root: torch.Tensor | None = None) -> torch.Tensor:
+    """2.5D joints (..., 21, 3) -> metric 3D camera-space joints (..., 21, 3);
+    ``z_root``: an externally refined scale-normalized root depth."""
+    z_root_calc, K_inv = root_depth(joints_25d, K)
+    if z_root is None:
+        z_root = z_root_calc
+    z = (joints_25d[..., -1] + z_root[..., None]) * scale[..., None]
+    uv1 = torch.cat([joints_25d[..., :2], torch.ones_like(joints_25d[..., -1:])], dim=-1)
+    return _apply3(K_inv, uv1) * z[..., None]
 
 
 def rotation_matrix_2d(angle_deg: torch.Tensor) -> torch.Tensor:

@@ -20,8 +20,8 @@ Two routes, as in the JAX package:
     a generator seeded by (seed, epoch, index), so it gives the JAX
     package's batches bit for bit. It needs ``cv2``.
 
-The supervised route (``_supervised``) belongs to fine-tuning and is not
-ported yet.
+The supervised route (``_supervised``, the fine-tune side's 2.5D samples)
+takes the host route.
 """
 from __future__ import annotations
 
@@ -30,7 +30,9 @@ import threading
 from typing import Iterator, Sequence
 
 import numpy as np
+import torch
 
+from simhand_tpu_torch.core import geometry
 from simhand_tpu_torch.core.joints import CHILD_JOINT, PARENT_JOINT
 from simhand_tpu_torch.data.augment_cv2 import (
     AppliedParams,
@@ -90,7 +92,9 @@ class PretrainDataset:
         self.flags = flags
         self.params = params
         self.seed = seed
-        # the supervised route's palm target (not ported yet)
+        # supervised route only: regress the palm (midpoint of wrist and
+        # index_mcp, ait order) instead of the wrist — reference
+        # data_set.py:388-396 / --use_palm
         self.use_palm = use_palm
 
     def __len__(self) -> int:
@@ -127,9 +131,45 @@ class PretrainDataset:
         return out
 
     def _supervised(self, sample: dict, rng) -> dict:
-        raise NotImplementedError(
-            "the supervised route belongs to fine-tuning and is not ported yet "
-            "(ROADMAP.md Queue 1 item 3)")
+        """Supervised 2.5D sample (reference: data_set.py:360-411): convert
+        to 2.5D, augment image+joints, update K by the accumulated transform,
+        recreate 3D for a consistency reference. The geometry runs in
+        float32 torch on the CPU (``core.geometry``)."""
+        def f32(a):
+            return torch.from_numpy(np.asarray(a, np.float32))
+
+        K = np.asarray(sample["K"], np.float32)
+        j25, scale = geometry.convert_to_2_5d(f32(K), f32(sample["joints3D"]))
+        img, j25_aug, T, _ = self.augmenter.transform(sample["image"], j25.numpy(), rng)
+        K_new = T.astype(np.float32) @ K
+        joints3d = np.asarray(sample["joints3D"], np.float32)
+        joints_raw = np.asarray(sample["joints_raw"], np.float32)
+        if self.use_palm:
+            # reference order (data_set.py:384-396): palm-ify the 3D
+            # joints AFTER the augment, recompute 2.5D through the
+            # updated K (replacing the augmented 2.5D — K_new carries the
+            # transform), and palm-ify joints_raw too
+            def palm(j):
+                j = j.copy()
+                j[0] = (j[0] + j[2]) / 2.0      # ait wrist=0, index_mcp=2
+                return j
+
+            joints3d = palm(joints3d)
+            joints_raw = palm(joints_raw)
+            j25_t, scale = geometry.convert_to_2_5d(f32(K_new), f32(joints3d))
+            j25_aug = j25_t.numpy()
+        j3d_recreated = geometry.convert_2_5d_to_3d(f32(j25_aug), scale, f32(K_new)).numpy()
+        return {
+            "image": normalize_image(img),
+            "joints": np.asarray(j25_aug).astype(np.float32),
+            "joints3D": joints3d,
+            "K": K_new,
+            "scale": np.float32(scale),
+            "joints3D_recreated": j3d_recreated.astype(np.float32),
+            "joints_valid": np.asarray(sample["joints_valid"], np.float32),
+            "joints_raw": joints_raw,
+            "T": T.astype(np.float32),
+        }
 
     def raw_batch(self, indices) -> dict | None:
         """A raw pair batch straight off a packed cache source (the native

@@ -102,8 +102,7 @@ def build_sources(args, train_param):
                                       scale="smoke", **src_kwargs))
         else:
             raise NotImplementedError(
-                f"source {s!r} is a fine-tune-side dataset and is not ported yet "
-                "(ROADMAP.md Queue 1 item 3)"
+                f"source {s!r} is a fine-tune-side dataset; use simhand_tpu_torch.finetune"
             )
     if len(out) == 1:
         return out[0]

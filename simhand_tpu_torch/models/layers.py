@@ -21,25 +21,44 @@ def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 
 class Conv2d(nn.Conv2d):
-    """Bias-free convolution; ``padding=None`` is flax's default 'SAME',
-    an int pads that much on every side."""
+    """Convolution, bias-free unless ``bias=True`` (flax's ``use_bias``);
+    ``padding=None`` is flax's default 'SAME', an int pads that much on
+    every side."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 padding: int | None = None, dtype: torch.dtype = torch.float32):
-        super().__init__(cin, cout, kernel, stride=stride, padding=0, bias=False)
+                 padding: int | None = None, dtype: torch.dtype = torch.float32,
+                 bias: bool = False):
+        super().__init__(cin, cout, kernel, stride=stride, padding=0, bias=bias)
         self.explicit_padding = padding
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        b = None if self.bias is None else self.bias.to(self.dtype)
         if self.explicit_padding is not None:
-            return F.conv2d(x, w, stride=self.stride, padding=self.explicit_padding)
+            return F.conv2d(x, w, b, stride=self.stride, padding=self.explicit_padding)
         (kh, kw), (sh, sw) = self.kernel_size, self.stride
         top, bottom = same_pads(x.shape[-2], kh, sh)
         left, right = same_pads(x.shape[-1], kw, sw)
         if top == bottom and left == right:
-            return F.conv2d(x, w, stride=self.stride, padding=(top, left))
-        return F.conv2d(F.pad(x, (left, right, top, bottom)), w, stride=self.stride)
+            return F.conv2d(x, w, b, stride=self.stride, padding=(top, left))
+        return F.conv2d(F.pad(x, (left, right, top, bottom)), w, b, stride=self.stride)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """flax ``nn.ConvTranspose(cout, (4, 4), strides=(2, 2), padding="SAME",
+    use_bias=False)``, computing in ``dtype``: the output is twice the
+    input's size. flax applies its (kH, kW, I, O) kernel without flipping
+    it, so the weight (I, O, kH, kW) holds that kernel with its spatial taps
+    reversed."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, 4, stride=2, padding=1, bias=False)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
+                                  stride=2, padding=1)
 
 
 class Linear(nn.Linear):

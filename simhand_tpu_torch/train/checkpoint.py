@@ -127,12 +127,12 @@ class CheckpointManager:
         """Nothing is held open between calls."""
 
 
-def export_torch_encoder(state, path: str) -> None:
-    """Writes the encoder in the released ``resnet50_simhand.pth`` layout:
-    torchvision's keys without ``num_batches_tracked``, contiguous float32
-    tensors on the CPU, the key set the JAX package's export writes."""
+def export_state_dict(module, path: str) -> None:
+    """Writes ``module``'s state dict without ``num_batches_tracked`` as
+    contiguous float32 tensors on the CPU, under a temporary name then
+    ``os.replace``d into ``path``."""
     sd = {k: v.detach().to("cpu", copy=True).contiguous()
-          for k, v in state.model.encoder.state_dict().items()
+          for k, v in module.state_dict().items()
           if not k.endswith("num_batches_tracked")}
     directory = os.path.dirname(os.path.abspath(path))
     os.makedirs(directory, exist_ok=True)
@@ -144,3 +144,9 @@ def export_torch_encoder(state, path: str) -> None:
     except BaseException:
         os.unlink(tmp)
         raise
+
+
+def export_torch_encoder(state, path: str) -> None:
+    """Writes the encoder in the released ``resnet50_simhand.pth`` layout:
+    torchvision's keys, the key set the JAX package's export writes."""
+    export_state_dict(state.model.encoder, path)

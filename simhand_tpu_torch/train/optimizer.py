@@ -71,6 +71,87 @@ def make_schedule(cfg: OptimizerConfig):
     return schedule
 
 
+def exponential_decay(init_value: float, transition_steps: int, decay_rate: float,
+                      staircase: bool = False):
+    """count -> learning rate (a float32 value), as
+    ``optax.exponential_decay(init_value, transition_steps, decay_rate,
+    staircase=staircase)`` computes it."""
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        if count <= 0:
+            return float(f32(init_value))
+        p = f32(count) / f32(transition_steps)
+        if staircase:
+            p = np.floor(p)
+        return float(f32(init_value) * np.power(f32(decay_rate), p))
+
+    return schedule
+
+
+@torch.no_grad()
+def adam_direction(mu, nu, grads, count: int) -> list[torch.Tensor]:
+    """optax.scale_by_adam (b1 0.9, b2 0.999, eps 1e-8 outside the root):
+    updates the moments in place and returns mu_hat / (sqrt(nu_hat) + eps)
+    for the ``count``-th update (counted from 1)."""
+    torch._foreach_mul_(mu, _B1)
+    torch._foreach_add_(mu, grads, alpha=1 - _B1)
+    torch._foreach_mul_(nu, _B2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1 - _B2)
+    f32 = np.float32
+    bc1 = float(f32(1) - f32(_B1) ** f32(count))
+    bc2 = float(f32(1) - f32(_B2) ** f32(count))
+    denom = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, _ADAM_EPS)
+    update = torch._foreach_div(mu, bc1)
+    torch._foreach_div_(update, denom)
+    return update
+
+
+class Adam:
+    """``optax.adam(schedule)``, or ``optax.multi_transform`` of such over
+    labelled groups: ``groups`` is a list of (parameters, schedule), each
+    schedule taken at the update count before its increment, as optax does.
+    Updated in place; ``state_dict`` holds the moments and the count."""
+
+    def __init__(self, groups):
+        self.groups = [(list(params), schedule) for params, schedule in groups]
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for params, _ in self.groups for p in params]
+        self.nu = [torch.zeros_like(p) for params, _ in self.groups for p in params]
+
+    @property
+    def params(self) -> list[torch.Tensor]:
+        """The parameters in the groups' order, the order ``step`` takes
+        their gradients in."""
+        return [p for params, _ in self.groups for p in params]
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        for mine, saved in ((self.mu, state["mu"]), (self.nu, state["nu"])):
+            if len(saved) != len(mine) or any(t.shape != v.shape for t, v in zip(mine, saved)):
+                raise ValueError("the saved moments do not fit these parameters")
+            for t, v in zip(mine, saved):
+                t.copy_(v)
+        self.count = int(state["count"])
+
+    @torch.no_grad()
+    def step(self, grads: list[torch.Tensor]) -> None:
+        """One update of every group's parameters by ``grads`` (in the
+        groups' order)."""
+        start = 0
+        self.count += 1
+        for params, schedule in self.groups:
+            k = slice(start, start + len(params))
+            start += len(params)
+            update = adam_direction(self.mu[k], self.nu[k], grads[k], self.count)
+            torch._foreach_add_(params, update, alpha=-schedule(self.count - 1))
+
+
 def decay_mask(model: nn.Module) -> list[bool]:
     """Per parameter of ``model.parameters()``: True where weight decay
     applies. Decided by module type (every BatchNorm parameter, including
@@ -161,17 +242,6 @@ class Optimizer:
         else:
             grads = [g + w * p if w else g
                      for g, p, w in zip(grads, params, self.decay)]
-        torch._foreach_mul_(self.mu, _B1)
-        torch._foreach_add_(self.mu, grads, alpha=1 - _B1)
-        torch._foreach_mul_(self.nu, _B2)
-        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - _B2)
         self.count += 1
-        f32 = np.float32
-        bc1 = float(f32(1) - f32(_B1) ** f32(self.count))
-        bc2 = float(f32(1) - f32(_B2) ** f32(self.count))
-        denom = torch._foreach_div(self.nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, _ADAM_EPS)
-        update = torch._foreach_div(self.mu, bc1)
-        torch._foreach_div_(update, denom)
+        update = adam_direction(self.mu, self.nu, grads, self.count)
         torch._foreach_add_(params, update, alpha=-lr)

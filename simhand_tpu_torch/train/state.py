@@ -29,12 +29,16 @@ class TrainState:
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """flax's initialisers: lecun_normal kernels (truncated normal, variance
-    1/fan_in), zero biases, BatchNorm scale 1 and bias 0. Sampled on the CPU
-    from ``generator``, so a seed gives the same weights on every device."""
+    1/fan_in), transposed ones included, zero biases, BatchNorm scale 1 and
+    bias 0. Sampled on the CPU from ``generator``, so a seed gives the same
+    weights on every device."""
     for module in model.modules():
-        if isinstance(module, (nn.Conv2d, nn.Linear)):
+        if isinstance(module, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
             w = module.weight
-            std = math.sqrt(1.0 / (w[0].numel())) / _TRUNC_STD
+            # fan_in: a transposed convolution's weight is (I, O, kH, kW)
+            fan_in = (w.shape[0] * w[0, 0].numel() if isinstance(module, nn.ConvTranspose2d)
+                      else w[0].numel())
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
             sample = torch.empty(w.shape, dtype=torch.float32)
             nn.init.trunc_normal_(sample, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)

@@ -56,6 +56,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         r"^\s*(import|from)\s+(jax|flax|optax|orbax|simhand_tpu(?!_torch))\b", re.M)
     files = sorted((REPO / "simhand_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {f"simhand_tpu_torch/finetune/{m}.py" for m in (
+        "maps", "image_stage", "datasets", "registry", "detnet", "detloss", "evaluation",
+        "train", "evaluate")} | {"simhand_tpu_torch/models/heads.py",
+                                 "simhand_tpu_torch/data/sources/freihand.py",
+                                 "simhand_tpu_torch/experiments/evaluation.py",
+                                 "simhand_tpu_torch/experiments/downstream.py"} <= names
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
 
