@@ -179,6 +179,31 @@
    save inside), img/s, the composed step (feed + step) and the step on one
    batch held on the card in turns, the feed alone a batch split into the
    host builder and the image stage, and the evaluations' seconds.
+18. last, the serving entry points as a user runs them, at full width
+   (ResNet-50, 128x128, B = 256, serving_model's weights and statistics and
+   a detnet with its own, under build/serving_<seed>): the encoder saved as
+   a checkpoint directory (train/checkpoint.py) and the detnet as
+   detnet.pth; ``serving.export.main`` writes five artifacts (the bf16,
+   weight-only int8 and int8_compute encoders from --checkpoint; the bf16
+   and int8_compute detnets from --pth; the int8_compute ones calibrated on
+   phase 3's cache) and ``load_artifact`` loads each on the card. Held: the
+   bf16 artifacts against the eval forwards they were exported from, rel
+   1e-5 (uv equal); the weight-only artifact's embedding at min cosine >
+   0.999 against the bf16 one and its file <= 0.35x; the int8_compute
+   encoder on the card against the same artifact on the CPU (8 images, rel
+   1e-5) and at min cosine > 0.99 against the float32 fold (TF32 off); the
+   int8_compute detnet artifact against the module it was exported from
+   (rel 1e-5, with cuDNN's deterministic algorithms on both, its float32
+   deconvolutions otherwise sum in no fixed order), its h_map within 0.05
+   of the bf16 artifact's and its d_map / l_map within 0.05 * max(1,
+   max|ref|) of the bf16 eval forward's, uv / xyz / delta finite;
+   ``embed.main`` over the cache at batch 256 against the artifact on the
+   same crops (rel 1e-5); ``server.serve`` from the bf16 artifact in a
+   thread, its answers as phase 14's. Prints each artifact's MB, export and
+   load seconds, the calibration's seconds, embed's images/s, the server's
+   requests/s, ms and img/s of every artifact, the eval forward and the
+   kernel walk in turns, and one int8_compute forward's device ms by op
+   (``_int_mm``, im2col, epilogue).
 
 Any failure ends the run with a non-zero exit code. The last line of the
 output is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -289,6 +314,29 @@ SERVE_BLOCKS, SERVE_IMAGES, SERVE_TIMED, SERVER_BATCH = ("layer4_1", "layer4_2")
 # convolution, by conv3's rounding before the shortcut's add at two blocks
 # and by the sums' order (CPU, ResNet-50 at 64x64: 3.0e-3)
 SERVE_WALK_RTOL = 1e-2
+
+# phase 18, the serving entry points: a plain artifact against the eval
+# forward it was exported from, relative to the largest output (expected
+# bit-equal: the same ATen ops); the int8_compute artifact on the card
+# against itself on the CPU on INT8_CPU_IMAGES images (its int8 GEMMs are
+# exact and its epilogue the same float64 arithmetic on both) and the
+# in-memory detnet it was exported from; embed.main against the artifact.
+# The weight-only artifact's min cosine and file share against the bf16
+# one (tests/test_serving.py's 0.999 and 0.35); the int8_compute embedding's
+# min cosine against the float32 fold (TF32 off); the int8_compute detnet
+# against bf16: h_map absolute, d_map / l_map relative to max(1, max|ref|)
+# (tests/test_int8_infer.py:160-168)
+ARTIFACT_RTOL, INT8_CPU_IMAGES = 1e-5, 8
+QUANT_MIN_COS, QUANT_SIZE_SHARE, INT8_F32_MIN_COS, DETNET_INT8_ATOL = 0.999, 0.35, 0.99, 0.05
+# the int8_compute forward's device time by op: the int8 GEMMs, the im2col
+# (padding, the patch concatenation, copies of strided patches), the float64
+# epilogue and requantization; the rest is pooling and the projection head
+INT8_OP_GROUPS = {"int_mm": ("aten::_int_mm",),
+                  "im2col": ("aten::cat", "aten::constant_pad_nd", "aten::pad", "aten::clone",
+                             "aten::new_zeros", "aten::reshape"),
+                  "epilogue": ("aten::addcmul", "aten::add", "aten::mul", "aten::round",
+                               "aten::clamp", "aten::clamp_", "aten::to", "aten::_to_copy",
+                               "aten::relu")}
 # float32 #10/#11 (F2): the step's fused sites, y against cuBLAS's float32
 # product (TF32 off) relative to its largest element, the step-0 loss
 # against the float32 exact step's, and the float32 steps run
@@ -377,29 +425,76 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_kernels(run, least: int = 1, tries: int = 3) -> list:
-    """The CUDA kernel rows of torch.profiler's key_averages() over run().
-    A session's device records can come back empty (seen on an H100 with
-    torch 2.11, many sessions into the process), so a session that
-    recorded fewer than ``least`` kernel launches is run again, up to
-    ``tries`` sessions, each retry said on stderr; then the script fails."""
+def counted_launches() -> dict:
+    """The launches the port's wrappers have counted so far, by the names of
+    the kernels they launch: each counted launch runs exactly one kernel
+    whose name holds one of the names of its group (a sum pass is named
+    otherwise). bottleneck_block counts nothing of its own here: its three
+    launches are conv_bias_act's."""
+    from simhand_tpu_torch.losses import ntxent_kernels as K
+    from simhand_tpu_torch.models import bn_epilogue as E
+    from simhand_tpu_torch.models import fused_bn as F
+    from simhand_tpu_torch.ops import conv1x1 as C
+    from simhand_tpu_torch.ops import conv_bias as CB
+
+    groups = {("plain_denom_kernel", "weighted_denom_kernel", "plain_grad_kernel",
+               "weighted_grad_kernel"): K.KERNELS,
+              ("bn_ring_reduce_kernel", "bn_res_reduce_kernel", "bn_ring_dx_kernel"):
+                  (*E.KERNELS, *F.KERNELS),
+              ("conv1x1_stats",): C.KERNELS,
+              ("conv_bias_kernel",): (CB.conv_bias_act,)}
+    return {names: sum(fn.launches for fn in fns) for names, fns in groups.items()}
+
+
+def profiled_session(run):
+    """A torch.profiler session that records run() once as a warm-up cycle,
+    which it drops, and then once more: the profiler and the launch counts
+    of the second run. Without the warm-up cycle a session's device records
+    can come back empty or in part, and keep doing so session after session
+    (seen on an H100 with torch 2.11, minutes into the process: 24 of the 30
+    kernels of ten launches of #5 in every one of 12 sessions, 4 of the
+    thousands of a step, 46 of the 66 launches a step of #5 and its sum
+    pass); with it, 15 of 16 such sessions were whole."""
     import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 acc_events=True) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+        before = counted_launches()
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+    return prof, {names: n - before[names] for names, n in counted_launches().items()}
+
+
+def profiled_kernels(run, least: int = 1, tries: int = 4) -> list:
+    """The CUDA kernel rows of torch.profiler's key_averages() over run()
+    (profiled_session; the step annotation is not a kernel). A session is
+    run again, up to ``tries`` sessions, each retry said on stderr, where it
+    recorded fewer than ``least`` kernel launches, or fewer launches of the
+    port's kernels than their wrappers counted in it (counted_launches);
+    then the script fails."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(1, tries + 1):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        prof, counted = profiled_session(run)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("ProfilerStep")]
+        lost = {names[0]: (seen, n) for names, n in counted.items()
+                if (seen := sum(e.count for e in kernels if any(k in e.key for k in names))) < n}
         if sum(e.count for e in kernels) >= least and sum(
-                e.self_device_time_total for e in kernels) > 0:
+                e.self_device_time_total for e in kernels) > 0 and not lost:
             return kernels
         print(f"chip_smoke: profiler session {attempt} of {tries} recorded "
-              f"{sum(e.count for e in kernels)} kernel launches", file=sys.stderr)
+              f"{sum(e.count for e in kernels)} kernel launches; of the port's kernels "
+              f"(recorded, counted) {lost}", file=sys.stderr)
         time.sleep(1.0)
-    raise SmokeFailure("the profiler saw no device time")
+    raise SmokeFailure("the profiler lost device records in every session")
 
 
 def device_ms_by_kernel(fn, iters: int) -> dict:
@@ -2532,7 +2627,14 @@ def serving_model(seed: int):
     from simhand_tpu_torch.models import ContrastiveModel
 
     torch.manual_seed(seed)
-    model = ContrastiveModel(RESNET, dtype=torch.bfloat16).cuda().eval()
+    return randomize_batchnorm(ContrastiveModel(RESNET, dtype=torch.bfloat16).cuda().eval(),
+                               seed)
+
+
+def randomize_batchnorm(model, seed: int):
+    """serving_model's BatchNorm affines and running statistics, from seed."""
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
@@ -2639,31 +2741,44 @@ def serving_path(seed: int) -> tuple[dict, dict, object]:
 
 def server_phase(forward) -> dict:
     """The micro-batcher and its HTTP handler over the kernel walk on
-    127.0.0.1: eight concurrent requests of mixed sizes checked against the
-    direct forward, /healthz, then a burst for requests/s whose answers are
-    checked the same way."""
+    127.0.0.1, driven by ``drive_server`` against the direct forward."""
     import threading
-    import urllib.request
-    from http.server import ThreadingHTTPServer
-
-    import numpy as np
 
     from simhand_tpu_torch.serving import MicroBatcher, make_handler
     from simhand_tpu_torch.serving.embed import _preprocess_fn
+    from simhand_tpu_torch.serving.server import _HTTPServer
+
+    batcher = MicroBatcher(lambda x: {"embedding": forward(x)}, SIDE, SERVER_BATCH, 200.0)
+    httpd = _HTTPServer(("127.0.0.1", 0), make_handler(batcher))
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        perf = drive_server(httpd.server_address[1],
+                            lambda padded: forward(_preprocess_fn(SIDE)(padded)).cpu().numpy())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+    require(not batcher.thread.is_alive(), "the micro-batcher's executor did not stop")
+    return perf
+
+
+def drive_server(port: int, direct) -> dict:
+    """Eight concurrent requests of mixed sizes to the server on
+    127.0.0.1:port, each answer checked against ``direct`` (a padded uint8
+    batch of SERVER_BATCH crops -> their embedding rows, numpy), /healthz,
+    then a burst for requests/s whose answers are checked the same way."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
     from simhand_tpu_torch.serving.server import _nearest_resize
 
     rng = np.random.default_rng(0)
     sizes = [(128, 128), (96, 160), (200, 200), (64, 64), (128, 100), (150, 90), (128, 128),
              (256, 192)]
     imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in sizes]
-    class Server(ThreadingHTTPServer):
-        request_queue_size = 4 * SERVER_BATCH   # a burst's connections wait in the backlog
-
-    batcher = MicroBatcher(lambda x: {"embedding": forward(x)}, SIDE, SERVER_BATCH, 200.0)
-    httpd = Server(("127.0.0.1", 0), make_handler(batcher))
-    port = httpd.server_address[1]
-    server = threading.Thread(target=httpd.serve_forever, daemon=True)
-    server.start()
 
     def post(img, out, i):
         req = urllib.request.Request(
@@ -2685,38 +2800,32 @@ def server_phase(forward) -> dict:
         require(not any(th.is_alive() for th in threads), "server requests did not finish")
         return out, time.perf_counter() - t0
 
-    try:
-        results, dt = burst(imgs)
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
-            require(r.read() == b"ok\n", "/healthz did not answer ok")
-        padded = np.zeros((SERVER_BATCH, SIDE, SIDE, 3), np.uint8)
-        padded[:len(imgs)] = np.stack([_nearest_resize(img, SIDE) for img in imgs])
-        want = forward(_preprocess_fn(SIDE)(padded)).cpu().numpy()
+    results, dt = burst(imgs)
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+        require(r.read() == b"ok\n", "/healthz did not answer ok")
+    padded = np.zeros((SERVER_BATCH, SIDE, SIDE, 3), np.uint8)
+    padded[:len(imgs)] = np.stack([_nearest_resize(img, SIDE) for img in imgs])
+    want = direct(padded)
 
-        def row_errors(answers, what):
-            """Each answer's distance from the direct forward's row of its
-            image; fails on a request left unanswered or a row off by more
-            than 1e-4."""
-            errs = []
-            for i, res in enumerate(answers):
-                require(res is not None, f"{what} request {i} was not answered")
-                got, ref = np.asarray(res["embedding"], np.float32), want[i % len(imgs)]
-                require(got.shape == ref.shape, f"{what} request {i}: row of shape {got.shape}")
-                errs.append(float(np.abs(got - ref).max()))
-                require(bool(np.allclose(got, ref, rtol=1e-4, atol=1e-4)),
-                        f"{what} request {i}: row differs from the direct forward by {errs[-1]}")
-            return errs
+    def row_errors(answers, what):
+        """Each answer's distance from the direct forward's row of its
+        image; fails on a request left unanswered or a row off by more
+        than 1e-4."""
+        errs = []
+        for i, res in enumerate(answers):
+            require(res is not None, f"{what} request {i} was not answered")
+            got, ref = np.asarray(res["embedding"], np.float32), want[i % len(imgs)]
+            require(got.shape == ref.shape, f"{what} request {i}: row of shape {got.shape}")
+            errs.append(float(np.abs(got - ref).max()))
+            require(bool(np.allclose(got, ref, rtol=1e-4, atol=1e-4)),
+                    f"{what} request {i}: row differs from the direct forward by {errs[-1]}")
+        return errs
 
-        errs = row_errors(results, "mixed-size")
-        n_burst = 2 * SERVER_BATCH
-        many = [imgs[i % len(imgs)] for i in range(n_burst)]
-        answers, dt_burst = burst(many)
-        burst_errs = row_errors(answers, "burst")
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        batcher.close()
-    require(not batcher.thread.is_alive(), "the micro-batcher's executor did not stop")
+    errs = row_errors(results, "mixed-size")
+    n_burst = 2 * SERVER_BATCH
+    many = [imgs[i % len(imgs)] for i in range(n_burst)]
+    answers, dt_burst = burst(many)
+    burst_errs = row_errors(answers, "burst")
     perf = {"requests": len(imgs), "max_abs_err": max(errs), "first_burst_s": dt,
             "burst_requests": n_burst, "burst_s": dt_burst, "burst_max_abs_err": max(burst_errs),
             "requests_per_s": n_burst / dt_burst}
@@ -2724,6 +2833,264 @@ def server_phase(forward) -> dict:
           f"{max(errs):.3e} of the direct forward; burst of {n_burst} requests, every row "
           f"within {max(burst_errs):.3e} of it, in {dt_burst:.3f} s = "
           f"{n_burst / dt_burst:.1f} requests/s")
+    return perf
+
+
+def op_split_ms(fn, groups: dict, launching: str = "aten::_int_mm", tries: int = 4) -> dict:
+    """Device ms of one fn() call by the ATen op that launched each kernel:
+    the outermost op whose name one of ``groups`` lists takes the device
+    time of everything under it; kernels of no listed op go to "other".
+    Every call of the op ``launching`` launches a kernel, so a session
+    (profiled_session) in which one of them shows no device time lost
+    records and is run again, up to ``tries`` sessions; then the script
+    fails."""
+    from torch.autograd import DeviceType
+
+    for attempt in range(1, tries + 1):
+        prof, _ = profiled_session(fn)
+        calls = [e.device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CPU and e.name == launching]
+        if calls and min(calls) > 0:
+            break
+        print(f"chip_smoke: profiler session {attempt} of {tries} recorded device time for "
+              f"{sum(t > 0 for t in calls)} of {len(calls)} {launching} calls", file=sys.stderr)
+        time.sleep(1.0)
+    else:
+        raise SmokeFailure(f"the profiler lost device records of {launching} in every session")
+    out = dict.fromkeys([*groups, "other"], 0.0)
+
+    def visit(event):
+        for group, names in groups.items():
+            if event.name in names:
+                out[group] += event.device_time_total / 1e3
+                return
+        out["other"] += sum(k.duration for k in event.kernels) / 1e3
+        for child in event.cpu_children:
+            visit(child)
+
+    for event in prof.events():
+        if event.device_type == DeviceType.CPU and event.cpu_parent is None:
+            visit(event)
+    return out
+
+
+def serving_entry_points(seed: int) -> dict:
+    """Phase 18: the serving entry points as a user runs them, at full width
+    (ResNet-50, SIDE, B = SERVE_IMAGES): export.main for five artifacts
+    (bf16, weight-only int8 and int8_compute encoders from a checkpoint
+    directory; bf16 and int8_compute detnets from a detnet.pth; the int8
+    ones calibrated on phase 3's cache), load_artifact, embed.main over the
+    cache and server.serve behind the micro-batcher, each held to its
+    limits; then every artifact, the eval forward and the kernel walk timed
+    in turns, and one int8_compute forward's device time split by op."""
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from simhand_tpu_torch import native
+    from simhand_tpu_torch.data.cache import CachedHand100MSource
+    from simhand_tpu_torch.finetune.detnet import DetNet
+    from simhand_tpu_torch.ops import bottleneck_block as BB
+    from simhand_tpu_torch.serving import embed, export, int8_infer, server
+    from simhand_tpu_torch.serving.embed import _preprocess_fn
+    from simhand_tpu_torch.train.checkpoint import CheckpointManager, export_state_dict
+    from simhand_tpu_torch.train.optimizer import Optimizer, OptimizerConfig, decay_mask
+    from simhand_tpu_torch.train.state import TrainState
+
+    root = native.BUILD_DIR / f"serving_{seed}"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cache = str(native.BUILD_DIR / f"cache_fed_{seed}")
+    # the phase starts from an empty allocator cache, whatever blocks the
+    # earlier phases left; its timings count the allocator's retries
+    torch.cuda.empty_cache()
+    # the encoder as pre-training leaves it (a checkpoint directory), the
+    # detnet as fine-tuning exports it (a .pth), both with serving_model's
+    # random weights and BatchNorm statistics
+    model = serving_model(seed)
+    state = TrainState(model, Optimizer(OptimizerConfig(), list(model.parameters()),
+                                        decay_mask(model)))
+    CheckpointManager(str(root / "checkpoints")).save(1, state, {"contrastive_loss": 0.0})
+    del state
+    torch.manual_seed(seed + 2)
+    det = randomize_batchnorm(DetNet(RESNET, dtype=torch.bfloat16, hm_res=SIDE // 4).cuda().eval(),
+                              seed + 2)
+    export_state_dict(det, str(root / "detnet.pth"))
+
+    enc = ["--surface", "encoder", "--backbone", RESNET, "--side", str(SIDE),
+           "--checkpoint", str(root / "checkpoints")]
+    dnet = ["--surface", "detnet", "--backbone", RESNET, "--side", str(SIDE),
+            "--pth", str(root / "detnet.pth")]
+    int8c = ["--quantize", "int8_compute", "--calib_cache", cache]
+    runs = {"encoder_bf16": enc, "encoder_int8": enc + ["--quantize", "int8"],
+            "encoder_int8_compute": enc + int8c, "detnet_bf16": dnet,
+            "detnet_int8_compute": dnet + int8c}
+    perf = {"artifacts": {}}
+    calls, paths = {}, {}
+    for name, flags in runs.items():
+        paths[name] = str(root / f"{name}.pt2")
+        t0 = time.perf_counter()
+        export.main([*flags, "--out", paths[name]])
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        calls[name], meta = export.load_artifact(paths[name])
+        load_s = time.perf_counter() - t0
+        quantize = flags[flags.index("--quantize") + 1] if "--quantize" in flags else None
+        require(meta["surface"] == flags[1] and meta["side"] == SIDE
+                and meta["batch"] == "poly" and meta["quantize"] == quantize,
+                f"artifact {name}: header {meta}")
+        mb = (root / f"{name}.pt2").stat().st_size / 1e6
+        perf["artifacts"][name] = {"mb": mb, "export_s": export_s, "load_s": load_s}
+        print(f"artifact {name}: {mb:.3f} MB; export.main {export_s:.2f} s, "
+              f"load_artifact {load_s:.2f} s")
+
+    # calibration as export.main runs it, timed alone; the detnet's W8A8
+    # module in memory (its d_map and l_map are not in the artifact)
+    t0 = time.perf_counter()
+    calib = int8_infer.cache_calibration_batches(cache, side=SIDE, device="cuda")
+    perf["calib_read_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, report = int8_infer.build_encoder_int8(model, calib_batches=calib)
+    torch.cuda.synchronize()
+    perf["calibrate_encoder_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    det_int8, det_report = int8_infer.build_detnet_int8(det, RESNET, calib_batches=calib)
+    torch.cuda.synchronize()
+    perf["calibrate_detnet_s"] = time.perf_counter() - t0
+    print(f"calibration: {len(calib)} batches of {calib[0].shape[0]} cache crops read and "
+          f"preprocessed in {perf['calib_read_s']:.2f} s; encoder {report['sites']} sites "
+          f"calibrated and quantized in {perf['calibrate_encoder_s']:.2f} s, detnet "
+          f"{det_report['sites']} in {perf['calibrate_detnet_s']:.2f} s")
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    images = torch.randn(SERVE_IMAGES, SIDE, SIDE, 3, device="cuda", generator=gen)
+    eval_enc, eval_det = export.build_encoder_forward(model), export.build_detnet_forward(det)
+    with torch.no_grad():
+        want_enc, want_det = eval_enc(images), det(images)
+        f32 = int8_infer.fold_encoder_f32(model)(images)["embedding"]
+        rerun = [det_int8(images)["h_map"] for _ in range(2)]
+    got = {name: call(images) for name, call in calls.items()}
+    # the W8A8 detnet's float32 deconvolutions run on cuDNN's backward-data
+    # algorithms, some of which sum in no fixed order: its artifact is held
+    # to the module it was exported from with deterministic ones on both
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            det_mem = det_int8(images)
+        got_det_int8 = calls["detnet_int8_compute"](images)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    c = {"encoder_bf16_rel": max(rel(got["encoder_bf16"][k], want_enc[k]) for k in want_enc),
+         "detnet_bf16_rel": max(rel(got["detnet_bf16"][k], want_det[k])
+                                for k in ("h_map", "xyz", "delta")),
+         "detnet_bf16_uv_equal": bool((got["detnet_bf16"]["uv"] == want_det["uv"]).all()),
+         "int8_min_cos": float(cosines(got["encoder_int8"]["embedding"],
+                                       got["encoder_bf16"]["embedding"]).min()),
+         "int8_size_share": (perf["artifacts"]["encoder_int8"]["mb"]
+                             / perf["artifacts"]["encoder_bf16"]["mb"]),
+         "int8_compute_min_cos_f32": float(cosines(got["encoder_int8_compute"]["embedding"],
+                                                   f32).min()),
+         "detnet_int8_artifact_rel": {k: rel(got_det_int8[k], det_mem[k])
+                                      for k in ("h_map", "xyz", "delta")},
+         "detnet_int8_artifact_uv_equal": bool((got_det_int8["uv"] == det_mem["uv"]).all()),
+         "detnet_int8_rerun_h_map_rel": rel(rerun[1], rerun[0]),
+         "detnet_int8_h_map_abs": float((got["detnet_int8_compute"]["h_map"]
+                                         - got["detnet_bf16"]["h_map"]).abs().max())}
+    for k in ("d_map", "l_map"):
+        c[f"detnet_int8_{k}_abs"] = float((det_mem[k] - want_det[k]).abs().max())
+        c[f"detnet_int8_{k}_limit"] = DETNET_INT8_ATOL * max(1.0, float(want_det[k].abs().max()))
+    cpu_call, _ = export.load_artifact(paths["encoder_int8_compute"], "cpu")
+    sub = images[:INT8_CPU_IMAGES]
+    on_cpu, on_card = cpu_call(sub.cpu()), calls["encoder_int8_compute"](sub)
+    c["int8_compute_card_vs_cpu_rel"] = {k: rel(on_card[k].cpu(), on_cpu[k]) for k in on_cpu}
+    finite = {k: bool(v.float().isfinite().all()) for k, v in got["detnet_int8_compute"].items()}
+    print("serving entry points: " + " ".join(f"{k}={v}" for k, v in c.items()))
+    require(c["encoder_bf16_rel"] <= ARTIFACT_RTOL and c["detnet_bf16_rel"] <= ARTIFACT_RTOL
+            and c["detnet_bf16_uv_equal"],
+            "a bf16 artifact differs from the eval forward it was exported from")
+    require(c["int8_min_cos"] > QUANT_MIN_COS and c["int8_size_share"] <= QUANT_SIZE_SHARE,
+            "the weight-only int8 artifact is off the bf16 one or not small enough")
+    require(c["int8_compute_card_vs_cpu_rel"]["embedding"] <= ARTIFACT_RTOL,
+            "the int8_compute artifact on the card is off its CPU run")
+    require(c["int8_compute_min_cos_f32"] > INT8_F32_MIN_COS,
+            "the int8_compute embedding does not track the float32 fold")
+    require(max(c["detnet_int8_artifact_rel"].values()) <= ARTIFACT_RTOL
+            and c["detnet_int8_artifact_uv_equal"],
+            "the int8_compute detnet artifact differs from the module it was exported from")
+    require(c["detnet_int8_h_map_abs"] < DETNET_INT8_ATOL
+            and all(c[f"detnet_int8_{k}_abs"] < c[f"detnet_int8_{k}_limit"]
+                    for k in ("d_map", "l_map")) and all(finite.values()),
+            f"the int8_compute detnet is off the bf16 one (finite {finite})")
+    perf["checks"] = c
+    del want_enc, want_det, f32, det_mem, got, got_det_int8, rerun, on_cpu, on_card
+
+    # embed.main over the cache against the artifact on the same crops
+    out = root / "embeddings.npy"
+    perf["embed"] = embed.main(["--artifact", paths["encoder_bf16"], "--cache", cache,
+                                "--batch", str(SERVE_IMAGES), "--out", str(out)])
+    crops = CachedHand100MSource(cache).gather_crops(np.arange(CACHE_IMAGES))
+    pre = _preprocess_fn(SIDE)
+    want = torch.cat([calls["encoder_bf16"](pre(crops[lo:lo + SERVE_IMAGES]))["embedding"]
+                      for lo in range(0, CACHE_IMAGES, SERVE_IMAGES)])
+    perf["embed"]["rel"] = rel(torch.from_numpy(np.load(out)), want.cpu())
+    print(f"embed.main: {CACHE_IMAGES} crops at batch {SERVE_IMAGES}, "
+          f"{perf['embed']['images_per_sec']:.1f} images/s ({perf['embed']['seconds']:.3f} s), "
+          f"rows within rel {perf['embed']['rel']:.3e} of the artifact's")
+    require(perf["embed"]["rel"] <= ARTIFACT_RTOL, "embed.main's rows are off the artifact's")
+
+    # server.serve from the bf16 artifact, in a thread, at the CLI's max_wait_ms
+    ready, failure = threading.Event(), []
+
+    def run_server():
+        try:
+            server.serve(paths["encoder_bf16"], 0, SERVER_BATCH, 5.0, ready=ready)
+        except BaseException as exc:     # reported below; the phase then fails
+            failure.append(exc)
+            ready.set()
+
+    thread = threading.Thread(target=run_server, daemon=True)
+    thread.start()
+    require(ready.wait(300) and not failure, f"server.serve did not start: {failure}")
+    try:
+        perf["server"] = drive_server(
+            ready.httpd.server_address[1],
+            lambda padded: calls["encoder_bf16"](pre(padded))["embedding"].float().cpu().numpy())
+    finally:
+        ready.httpd.shutdown()
+        thread.join(timeout=60)
+    require(not thread.is_alive() and not failure, f"server.serve did not stop: {failure}")
+
+    # in turns at B = SERVE_IMAGES
+    kernel_walk = BB.make_folded_encoder_bf16(model, SERVE_BLOCKS)
+    walks = {"encoder_bf16_artifact": calls["encoder_bf16"], "eval_forward": eval_enc,
+             "encoder_int8_artifact": calls["encoder_int8"],
+             "encoder_int8_compute_artifact": calls["encoder_int8_compute"],
+             "kernel_walk": kernel_walk, "detnet_bf16_artifact": calls["detnet_bf16"],
+             "detnet_int8_compute_artifact": calls["detnet_int8_compute"]}
+    times = {k: [] for k in walks}
+    retries = torch.cuda.memory_stats()["num_alloc_retries"]
+    with torch.no_grad():
+        kernel_walk(images)
+        for name in [*walks, *reversed(walks)]:
+            times[name].append(timed_calls(walks[name], images, SERVE_TIMED))
+    perf["alloc_retries_in_turns"] = torch.cuda.memory_stats()["num_alloc_retries"] - retries
+    perf["forward_ms"] = {k: sum(v) / len(v) for k, v in times.items()}
+    perf["forward_ms_turns"] = times
+    perf["img_per_s"] = {k: SERVE_IMAGES / v * 1e3 for k, v in perf["forward_ms"].items()}
+    print(f"serving entry points, ms per forward of {SERVE_IMAGES} images in turns: " + ", ".join(
+        f"{k} {v:.3f} = {perf['img_per_s'][k]:.1f} img/s" for k, v in perf["forward_ms"].items())
+        + f"; turns {times}; allocator retries {perf['alloc_retries_in_turns']}")
+    perf["int8_compute_device_ms"] = op_split_ms(
+        lambda: calls["encoder_int8_compute"](images), INT8_OP_GROUPS)
+    print("int8_compute forward, device ms by op: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in perf["int8_compute_device_ms"].items()))
     return perf
 
 
@@ -2810,6 +3177,8 @@ def main() -> int:
     del batch
     serve_launches, serve_perf, kernel_walk = serving_path(args.seed)
     server_perf = server_phase(kernel_walk)
+    del kernel_walk
+    entry_serving_perf = serving_entry_points(args.seed)
 
     kernels = []
     for name, shapes in report.items():
@@ -2883,7 +3252,8 @@ def main() -> int:
                       "epilogue_step": bn_perf, "fused_bn_step": fused_bn_perf,
                       "conv1x1_step": conv_perf, "conv1x1_f32_step": f32_perf,
                       "plain_family_step": plain_perf,
-                      "serving": serve_perf, "server": server_perf, "card": card}))
+                      "serving": serve_perf, "server": server_perf,
+                      "serving_entry_points": entry_serving_perf, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

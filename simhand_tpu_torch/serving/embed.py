@@ -1,15 +1,29 @@
-"""Batch embedding over the serving forward (counterpart of the device part
-of ``simhand_tpu/serving/embed.py``).
+"""Offline batch embedding: run an encoder artifact over a corpus
+(counterpart of ``simhand_tpu/serving/embed.py``).
+
+The pre-training product is the encoder; its serving job is bulk feature
+extraction (retrieval, re-mining, downstream probes). This CLI (console
+script ``simhand-torch-embed``) streams a packed crop cache
+(``data/cache.py``) or an image glob through a serving artifact
+(``export.py``) and writes ``(N, D)`` float32 embeddings; it runs on the
+card unless given ``--device cpu``:
+
+  simhand-torch-export-serving --surface encoder --pth resnet50_simhand.pth \\
+      --out enc.pt2
+  python -m simhand_tpu_torch.serving.embed --artifact enc.pt2 \\
+      --cache /data/crop_cache --out embeddings.npy
 
 Crops travel to the device as uint8 (4x less host-to-device traffic than
 float32); scaling, the bilinear resize and the ImageNet normalization run
-there, and every batch is padded to the same shape.
-
-Not in this module yet (ROADMAP Queue 1 item 13, with the ``torch.export``
-artifacts and the data slice): the crop-cache and image-glob readers and the
-``main`` CLI.
+there, and every batch is padded to the same shape. The image route needs
+``cv2``, imported inside ``_iter_images``; the cache route does not.
 """
 from __future__ import annotations
+
+import argparse
+import glob as globlib
+import json
+import time
 
 import numpy as np
 import torch
@@ -41,6 +55,35 @@ def _preprocess_fn(side: int, device=None):
     return preprocess
 
 
+def _iter_cache(cache_dir: str, batch: int):
+    from simhand_tpu_torch.data.cache import CachedHand100MSource
+
+    src = CachedHand100MSource(cache_dir)
+    n = len(src)
+    for lo in range(0, n, batch):
+        yield n, src.gather_crops(np.arange(lo, min(lo + batch, n)))
+
+
+def _iter_images(pattern: str, batch: int):
+    import cv2
+
+    paths = sorted(globlib.glob(pattern))
+    if not paths:
+        raise FileNotFoundError(f"no files match {pattern!r}")
+    n = len(paths)
+    for lo in range(0, n, batch):
+        imgs = []
+        for p in paths[lo:lo + batch]:
+            img = cv2.imread(p, cv2.IMREAD_COLOR)
+            if img is None:
+                raise IOError(f"unreadable image: {p}")
+            imgs.append(img[:, :, ::-1])  # BGR -> RGB (training convention)
+        side = max(i.shape[0] for i in imgs)
+        imgs = [i if i.shape[:2] == (side, side) else cv2.resize(i, (side, side))
+                for i in imgs]
+        yield n, np.stack(imgs)
+
+
 def embed_stream(call, batches, side: int, batch: int, what: str, device=None):
     """Pads every chunk of ``batches`` ((total, (k, H, W, 3) uint8) pairs) to
     ``batch`` rows (one shape), runs ``call`` on it and strips the pad rows
@@ -57,3 +100,46 @@ def embed_stream(call, batches, side: int, batch: int, what: str, device=None):
     if total is not None and emb.shape[0] != total:
         raise ValueError(f"the batches held {emb.shape[0]} rows, not the {total} they announced")
     return emb
+
+
+def main(argv=None, device=None):
+    """Embeds a corpus; ``device`` overrides ``--device``. Prints the
+    reference's JSON line and returns it (its numbers unrounded)."""
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--artifact", required=True, help="encoder serving artifact")
+    p.add_argument("--cache", default=None, help="packed crop cache directory (data/cache.py)")
+    p.add_argument("--images", default=None, help="glob of image files (e.g. 'crops/*.jpg')")
+    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--what", choices=("embedding", "projection"), default="embedding")
+    p.add_argument("--shard_devices", action="store_true",
+                   help="split each batch over every card, one copy of the program on each "
+                        "(--batch must divide by the card count)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--out", required=True, help=".npy output path")
+    args = p.parse_args(argv)
+    if bool(args.cache) == bool(args.images):
+        raise SystemExit("exactly one of --cache / --images is required")
+
+    from simhand_tpu_torch.serving.export import load_artifact, shard_over_devices
+
+    dev = resolve_device(device or args.device)
+    call, meta = load_artifact(args.artifact, dev)
+    if args.shard_devices:
+        call, n_dev = shard_over_devices(call, None if dev.type == "cuda" else [dev])
+        if args.batch % n_dev:
+            raise SystemExit(f"--batch {args.batch} not divisible by {n_dev} devices")
+    side = int(meta.get("side", 128))
+    batches = (_iter_cache(args.cache, args.batch) if args.cache
+               else _iter_images(args.images, args.batch))
+    t0 = time.perf_counter()
+    emb = embed_stream(call, batches, side, args.batch, args.what, device=dev)
+    dt = time.perf_counter() - t0
+    np.save(args.out, emb)
+    info = {"out": args.out, "shape": list(emb.shape), "what": args.what,
+            "images_per_sec": emb.shape[0] / dt, "seconds": dt}
+    print(json.dumps(info))
+    return info
+
+
+if __name__ == "__main__":
+    main()

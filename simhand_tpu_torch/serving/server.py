@@ -1,27 +1,35 @@
-"""Micro-batching inference server (counterpart of ``MicroBatcher`` and
-``make_handler`` in ``simhand_tpu/serving/server.py``).
+"""Micro-batching inference server over a serving artifact (counterpart of
+``simhand_tpu/serving/server.py``).
 
 Stdlib HTTP front end for one card: requests are queued and coalesced into
-device batches (up to ``batch``, waiting at most ``max_wait_ms`` for
-stragglers), run through ``call`` (any callable ``images -> {name:
-tensor}``, e.g. ``ops.bottleneck_block.make_folded_encoder_bf16``'s forward
-wrapped in a dict) on one executor thread with one CUDA stream, and fanned
-back out:
+device batches (up to ``--batch``, waiting at most ``--max_wait_ms`` for
+stragglers), run through the artifact (``export.load_artifact``; or, for
+``MicroBatcher`` alone, any callable ``images -> {name: tensor}``) on one
+executor thread with one CUDA stream, and fanned back out:
 
-  POST /infer?h=128&w=128   raw uint8 RGB bytes -> JSON of every output
-  GET  /healthz             "ok"
+  simhand-torch-serve --artifact enc.pt2 --port 8080 --batch 128
+  curl -X POST --data-binary @crop.rgb \\
+      'http://host:8080/infer?h=128&w=128'    # raw uint8 RGB bytes
+  GET /healthz                                # "ok"
 
-Not in this module yet (ROADMAP Queue 1 item 13): ``serve`` and ``main``,
-which load a serving artifact; the port has no ``torch.export`` artifact.
+Responses are JSON: every output head of the artifact, nested lists. The
+artifact must be batch-polymorphic (``--batch poly``, the export's default)
+or exported at exactly ``--batch``; inputs are resized on the host to the
+artifact's side (nearest) and normalized on the device by the same
+preprocess as ``simhand-torch-embed``. It serves on the card unless given
+``--device cpu``. This is a deployment convenience, not a load balancer:
+run one process per card behind whatever fleet routing you already have.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import queue
+import socket
 import threading
 import time
-from http.server import BaseHTTPRequestHandler
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
@@ -174,3 +182,47 @@ def make_handler(batcher: MicroBatcher):
             self.wfile.write(b"ok\n")
 
     return Handler
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    # a burst of concurrent requests waits in the listen backlog
+    request_queue_size = socket.SOMAXCONN
+
+
+def serve(artifact: str, port: int, batch: int, max_wait_ms: float,
+          ready: threading.Event | None = None, device=None):
+    """Serves ``artifact`` on every interface at ``port`` until the server is
+    shut down. ``ready``, when given, is set once the socket listens, with
+    the server as its ``httpd`` attribute (``ready.httpd.shutdown()`` stops
+    it; port 0 takes a free port, ``ready.httpd.server_address`` says which)."""
+    from simhand_tpu_torch.serving.export import load_artifact
+
+    call, meta = load_artifact(artifact, device)
+    batcher = MicroBatcher(call, int(meta.get("side", 128)), batch, max_wait_ms,
+                           device=call.device)
+    httpd = _HTTPServer(("0.0.0.0", port), make_handler(batcher))
+    if ready is not None:
+        ready.httpd = httpd  # type: ignore[attr-defined]
+        ready.set()
+    try:
+        httpd.serve_forever()
+    finally:
+        httpd.server_close()
+        batcher.close()
+
+
+def main(argv=None, device=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--artifact", required=True)
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--max_wait_ms", type=float, default=5.0)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = p.parse_args(argv)
+    print(json.dumps({"serving": args.artifact, "port": args.port, "batch": args.batch}))
+    serve(args.artifact, args.port, args.batch, args.max_wait_ms,
+          device=device or args.device)
+
+
+if __name__ == "__main__":
+    main()

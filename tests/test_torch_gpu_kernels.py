@@ -684,3 +684,84 @@ def test_prefetched_batches_equal_the_hosts(cuda):
             assert got[k].is_cuda and torch.equal(got[k].cpu(), torch.from_numpy(v)), k
         seen += 1
     assert seen == 5
+
+
+@pytest.mark.gpu
+def test_int8_compute_walk_on_the_card_equals_its_cpu_run(cuda):
+    """The W8A8 encoder (ResNet-18 at 64x64, calibrated on the CPU) on the
+    card against the same module on the CPU: every int8 activation of the
+    walk equal (exact int8 GEMMs, the same float64 epilogue on both), so the
+    embeddings agree within rel 1e-5 (the float32 pool and head alone
+    differ in their order of sums)."""
+    import copy
+
+    from simhand_tpu_torch.models import ContrastiveModel
+    from simhand_tpu_torch.serving.int8_infer import (build_encoder_int8,
+                                                      random_calibration_batches)
+
+    torch.manual_seed(0)
+    model = ContrastiveModel("18").eval()
+    calib = random_calibration_batches(side=64, batch=4, n=2)
+    cpu, _ = build_encoder_int8(model, calib_batches=calib)
+    card = copy.deepcopy(cpu).cuda()
+    seen = {"cpu": {}, "cuda": {}}
+
+    def record(module, where):
+        requant, conv = module.ops._requant, module.ops.conv_bn_relu
+
+        def _requant(key, y, lo=-127):
+            out = requant(key, y, lo)
+            seen[where][key] = out[0].cpu()
+            return out
+
+        def conv_bn_relu(key, xq_s, *args, **kw):
+            out = conv(key, xq_s, *args, **kw)
+            seen[where][key] = out[0].cpu()
+            return out
+
+        module.ops._requant, module.ops.conv_bn_relu = _requant, conv_bn_relu
+
+    record(cpu, "cpu")
+    record(card, "cuda")
+    x = torch.from_numpy(random_calibration_batches(side=64, batch=24, n=1, seed=1)[0])
+    with torch.no_grad():
+        want, got = cpu(x), card(x.cuda())
+    assert seen["cpu"].keys() == seen["cuda"].keys() and len(seen["cpu"]) == 18
+    for key, a in seen["cpu"].items():
+        assert torch.equal(a, seen["cuda"][key]), key
+    for k in ("embedding", "projection"):
+        err = (got[k].cpu() - want[k]).abs().max() / want[k].abs().max()
+        assert err <= 1e-5, (k, float(err))
+
+
+@pytest.mark.gpu
+def test_artifacts_exported_on_the_cpu_serve_on_the_card(cuda, tmp_path):
+    """load_artifact moves a program exported on the CPU to the card, the
+    constants made inside the forward (the detnet's pose tile) included: a
+    float32 detnet (ResNet-18, 64x64) within 1e-4 of its CPU run (TF32 off),
+    the W8A8 encoder within rel 1e-5."""
+    from simhand_tpu_torch.finetune.detnet import DetNet
+    from simhand_tpu_torch.models import ContrastiveModel
+    from simhand_tpu_torch.serving.export import (build_detnet_forward, export_forward,
+                                                  load_artifact, save_artifact)
+    from simhand_tpu_torch.serving.int8_infer import (build_encoder_int8,
+                                                      random_calibration_batches)
+
+    torch.manual_seed(0)
+    det = build_detnet_forward(DetNet("18", hm_res=16))
+    enc, _ = build_encoder_int8(ContrastiveModel("18").eval(),
+                                calib_batches=random_calibration_batches(side=64, batch=4))
+    x = torch.from_numpy(random_calibration_batches(side=64, batch=6, n=1, seed=2)[0])
+    # h_map alone of the detnet: the argmax of its near-flat random maps (uv,
+    # xyz, delta) can move with the last bits of a sum
+    for name, forward, keys in (("detnet", det, ("h_map",)),
+                                ("encoder", enc, ("embedding", "projection"))):
+        path = str(tmp_path / f"{name}.pt2")
+        save_artifact(path, export_forward(forward, side=64), {"side": 64})
+        on_cpu = load_artifact(path, "cpu")[0](x)
+        on_card = load_artifact(path, "cuda")[0](x.cuda())
+        for k in keys:
+            assert on_card[k].device.type == "cuda"
+            err = (on_card[k].cpu() - on_cpu[k]).abs().max()
+            limit = 1e-4 if name == "detnet" else 1e-5 * float(on_cpu[k].abs().max())
+            assert err <= limit, (name, k, float(err))

@@ -1,8 +1,12 @@
 """The port's serving front end (``simhand_tpu_torch.serving.embed`` and
 ``.server``) on the CPU: the device-side preprocess against the JAX
-package's, padded batch embedding, and the micro-batching HTTP server over
-the port's bf16 folded walk (``device="cpu"``; kernel #12's blocks take
-their plain version there). Inputs are made from a seed with numpy.
+package's, padded batch embedding, the micro-batching HTTP server over the
+port's bf16 folded walk (``device="cpu"``; kernel #12's blocks take their
+plain version there), and the entry points over a float32 ResNet-18
+artifact at 32x32: ``embed.main`` over a packed crop cache (against the
+artifact on the same preprocessed crops, 1e-4) and over an image glob
+(where ``cv2`` imports), and ``server.serve`` on 127.0.0.1. Inputs are made
+from a seed with numpy.
 """
 import json
 import threading
@@ -129,3 +133,103 @@ def test_microbatch_server_coalesces_requests():
         httpd.server_close()
         batcher.close()
     assert not batcher.thread.is_alive()
+
+
+@pytest.fixture(scope="module")
+def artifact(tmp_path_factory):
+    """A float32 ResNet-18 encoder artifact at SIDE, batch-polymorphic."""
+    from simhand_tpu_torch.serving.export import build_encoder_forward, export_forward, save_artifact
+
+    torch.manual_seed(1)
+    forward = build_encoder_forward(ContrastiveModel("18"))
+    path = str(tmp_path_factory.mktemp("serving") / "enc.pt2")
+    save_artifact(path, export_forward(forward, side=SIDE, batch="poly"),
+                  {"surface": "encoder", "backbone": "18", "side": SIDE})
+    return path
+
+
+def test_embed_main_over_a_crop_cache(artifact, tmp_path):
+    """11 cached 64x64 crops in batches of 4 (a ragged last one): the rows
+    equal the artifact on the same preprocessed crops within 1e-4."""
+    from simhand_tpu_torch.data.cache import CachedHand100MSource, build_crop_cache
+    from simhand_tpu_torch.data.sources.synthetic import SyntheticHandSource
+    from simhand_tpu_torch.serving.embed import main as embed_main
+    from simhand_tpu_torch.serving.export import load_artifact
+
+    cache = str(tmp_path / "cache")
+    build_crop_cache(SyntheticHandSource(11, side=64, seed=2), cache, shard_size=8)
+    out = str(tmp_path / "emb.npy")
+    info = embed_main(["--artifact", artifact, "--cache", cache, "--batch", "4",
+                       "--device", "cpu", "--out", out])
+    emb = np.load(out)
+    assert info["shape"] == [11, 512] and emb.shape == (11, 512) and info["images_per_sec"] > 0
+    call, _ = load_artifact(artifact, "cpu")
+    crops = CachedHand100MSource(cache).gather_crops(np.arange(11))
+    want = call(_preprocess_fn(SIDE, "cpu")(crops))["embedding"].numpy()
+    np.testing.assert_allclose(emb, want, rtol=1e-4, atol=1e-4)
+
+
+def test_embed_main_over_an_image_glob(artifact, tmp_path):
+    """--images: BGR files decoded to RGB and resized, a ragged last batch,
+    the projection written."""
+    cv2 = pytest.importorskip("cv2")
+    from simhand_tpu_torch.serving.embed import main as embed_main
+
+    rng = np.random.default_rng(7)
+    for i in range(5):
+        cv2.imwrite(str(tmp_path / f"crop_{i}.png"),
+                    rng.integers(0, 255, (20, 20, 3), dtype=np.uint8))
+    out = str(tmp_path / "emb.npy")
+    embed_main(["--artifact", artifact, "--images", str(tmp_path / "crop_*.png"), "--batch", "2",
+                "--what", "projection", "--device", "cpu", "--out", out])
+    emb = np.load(out)
+    assert emb.shape == (5, 128) and np.isfinite(emb).all()
+    assert np.abs(emb[0] - emb[1]).max() > 1e-6
+
+
+def test_serve_answers_on_localhost(artifact):
+    """server.serve on the CPU from the artifact: concurrent requests of
+    mixed sizes answered with the artifact's rows (1e-4), /healthz, and a
+    clean stop through ready.httpd."""
+    from simhand_tpu_torch.serving.export import load_artifact
+    from simhand_tpu_torch.serving.server import serve
+
+    ready = threading.Event()
+    thread = threading.Thread(target=serve, args=(artifact, 0, 4, 200.0),
+                              kwargs={"ready": ready, "device": "cpu"}, daemon=True)
+    thread.start()
+    assert ready.wait(120)
+    port = ready.httpd.server_address[1]
+    sizes = [(32, 32), (40, 24), (20, 20)]
+    imgs = [crops(1, h, w, seed=10 + i)[0] for i, (h, w) in enumerate(sizes)]
+    results: list = [None] * len(imgs)
+
+    def post(i):
+        h, w = sizes[i]
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/infer?h={h}&w={w}",
+                                     data=imgs[i].tobytes(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            results[i] = json.loads(resp.read())
+
+    try:
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(len(imgs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=180)
+        assert not any(th.is_alive() for th in threads)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+            assert r.read() == b"ok\n"
+    finally:
+        ready.httpd.shutdown()
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+    call, _ = load_artifact(artifact, "cpu")
+    padded = np.zeros((4, SIDE, SIDE, 3), np.uint8)
+    padded[:len(imgs)] = np.stack([_nearest_resize(img, SIDE) for img in imgs])
+    want = call(_preprocess_fn(SIDE, "cpu")(padded))
+    for i, res in enumerate(results):
+        assert res is not None, f"request {i} failed"
+        for k in ("embedding", "projection"):
+            np.testing.assert_allclose(np.asarray(res[k], np.float32), want[k][i].numpy(),
+                                       rtol=1e-4, atol=1e-4)
