@@ -204,6 +204,35 @@
    requests/s, ms and img/s of every artifact, the eval forward and the
    kernel walk in turns, and one int8_compute forward's device ms by op
    (``_int_mm``, im2col, epilogue).
+19. after 18, the mining stage and the worker-process loader. Mining
+   (``simhand_tpu_torch.mining``, plain PyTorch ops on the card; no Pallas
+   kernel lies on this path) at scripts/mine_scale_bench.py's cell: 100,000
+   hands, keypoints uniform in [0, 1) and video ids in [0, 5,000) from
+   ``--seed``, k = 1, chunks of 8,192, run twice (cold, warm) and equal bit
+   for bit. Held: every index >= 0, every distance finite, no pair from one
+   video, no hand paired with itself; the first 1,024 queries equal to
+   ``topk_similar`` on the CPU on the same arrays bit for bit; a corpus of
+   4,096 hands on the integer grid {0, 1, 2, 3} (copies of 512 poses over 64
+   videos, so exact ties abound), k = 3, chunks of 1,000 / 1,536, equal to
+   the CPU bit for bit; ``mining.run.main`` on an
+   unpaired JSON of the first 16,384 hands (nested <video>/frame_x.jpg
+   names, written under build/mining_<seed>) giving the library call's
+   positives and distances. Prints cold and warm seconds, hands/s, the
+   device ms of one 8,192 x 8,192 tile by kernel (torch.profiler, one query
+   chunk against two database chunks) and of the pass (scaled by its
+   tiles), its bound (N^2 * 21 * 7 float32
+   operations of a fused pass) beside the bytes the port's route moves at
+   the HBM rate, and the 2.0M corpus projected by N^2. The loader
+   (``data.grain_loader.grain_batch_iterator``, raw simhand_w pairs of
+   ``SyntheticHandSource(2048, side=224)`` from ``--seed``, batches of 256)
+   at 0, 1, 2, 4 and 8 workers up to the host's cores, the workers' fork
+   server started as mining begins: the serial epoch's samples equal
+   ``raw_pair`` bit for bit, every worker count gives the same samples bit
+   for bit. Prints raw pairs/s over the epoch (the workers' start included)
+   and after the first batch, the first batch's seconds at each count,
+   ``os.cpu_count()``, the corpus's build seconds, and the phase's seconds.
+   Then the fork server and its resource tracker are stopped and waited
+   for, and the run fails if any process it started is still running.
 
 Any failure ends the run with a non-zero exit code. The last line of the
 output is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -3094,6 +3123,263 @@ def serving_entry_points(seed: int) -> dict:
     return perf
 
 
+# phase 19, mining at scripts/mine_scale_bench.py's cell: MINE_N hands,
+# keypoints uniform in [0, 1) and video ids in [0, MINE_VIDEOS) from --seed,
+# k = 1, chunks of MINE_CHUNK; the first MINE_CPU_QUERIES queries against the
+# whole database on the CPU (chunks of MINE_CPU_CHUNK: the result does not
+# depend on the chunks); a tie corpus of TIE_N hands on the integer grid
+# {0, 1, 2, 3}, copies of TIE_POSES poses over TIE_VIDEOS videos, k = 3, ragged
+# chunks, card against CPU; the mining CLI on the first MINE_CLI_N hands
+MINE_N, MINE_VIDEOS, MINE_CHUNK = 100_000, 5_000, 8192
+MINE_CPU_QUERIES, MINE_CPU_CHUNK = 1024, 2048
+MINE_PROFILE_DB_CHUNKS = 2     # the profiled query chunk's database, in chunks
+TIE_N, TIE_POSES, TIE_VIDEOS, TIE_K, TIE_QUERY_CHUNK, TIE_DB_CHUNK = 4096, 512, 64, 3, 1000, 1536
+MINE_CLI_N = 16_384
+MINE_PROJECTED_N = 2_000_000   # the corpus the JAX script projects to
+# per (query, database) element and joint: the float32 operations a fused
+# pass needs (2 differences, 2 products, the add, the root, the sum), and
+# the bytes the port's route moves (_chunk_distances: ten passes over
+# (Q, C) planes of float32 and float64)
+MINE_FUSED_OPS, MINE_ROUTE_BYTES = 7, 120
+# the loader: raw simhand_w pairs of SyntheticHandSource(LOADER_IMAGES, side
+# CROP), batches of LOADER_BATCH, at each worker count up to the host's cores
+LOADER_IMAGES, LOADER_BATCH, LOADER_WORKERS = 2048, 256, (0, 1, 2, 4, 8)
+
+
+def same_bits(a, b) -> bool:
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        (a.view(np.uint8) == b.view(np.uint8)).all())
+
+
+def mining_path(seed: int) -> dict:
+    """Phase 19's mining: the library call at the scale cell (cold and warm,
+    hands/s, validity, the CPU on the first queries), the distance pass's
+    device ms by kernel beside its bound, the tie corpus, the CLI."""
+    import numpy as np
+    import torch
+
+    from simhand_tpu_torch import native
+    from simhand_tpu_torch.data.grain_loader import start_worker_server
+    from simhand_tpu_torch.device import resolve_device
+    from simhand_tpu_torch.mining import run as mining_run
+    from simhand_tpu_torch.mining import similar_hands as S
+
+    # the loader's fork server imports torch (~8 s) in a process of its own
+    # while mining runs on the card, outside the loader's timed epochs
+    start_worker_server()
+    rng = np.random.default_rng(seed)
+    kp = rng.uniform(0, 1, size=(MINE_N, 21, 2)).astype(np.float32)
+    vids = rng.integers(0, MINE_VIDEOS, size=MINE_N).astype(np.int32)
+    kw = dict(k=1, query_chunk=MINE_CHUNK, db_chunk=MINE_CHUNK)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, i = S.mine_similar_hands(kp, vids, **kw)
+        runs.append((time.perf_counter() - t0, d, i))
+    (cold_s, d, i), (warm_s, d2, i2) = runs
+    require(same_bits(d, d2) and same_bits(i, i2), "two mining runs differ")
+    require(d.shape == (MINE_N, 1) and d.dtype == np.float32 and i.dtype == np.int32,
+            f"mining gave {d.shape} {d.dtype} / {i.dtype}")
+    require(bool((i >= 0).all()) and bool(np.isfinite(d).all()),
+            "a hand without a valid positive, or a distance not finite")
+    require(bool((vids[i[:, 0]] != vids).all()), "a pair from the same video")
+    require(bool((i[:, 0] != np.arange(MINE_N)).all()), "a hand paired with itself")
+    t = torch.from_numpy
+    q = MINE_CPU_QUERIES
+    t0 = time.perf_counter()
+    cd, ci = S.topk_similar(t(kp[:q]), t(vids[:q]), torch.arange(q, dtype=torch.int32),
+                            t(kp), t(vids), k=1, db_chunk=MINE_CPU_CHUNK)
+    cpu_s = time.perf_counter() - t0
+    require(same_bits(d[:q], cd.numpy()) and same_bits(i[:q], ci.numpy()),
+            f"the card's first {q} queries differ from the CPU's: "
+            f"{int((d[:q] != cd.numpy()).sum())} distances, "
+            f"{int((i[:q] != ci.numpy()).sum())} indices")
+
+    # the distance pass's tiles: one query chunk against the first database
+    # chunks (all full), by kernel, a tile's share
+    dev = resolve_device()
+    qk, qv = t(kp[:MINE_CHUNK]).to(dev), t(vids[:MINE_CHUNK]).to(dev)
+    qi = torch.arange(MINE_CHUNK, dtype=torch.int32, device=dev)
+    n_db = MINE_PROFILE_DB_CHUNKS * MINE_CHUNK
+    dbk, dbv = t(kp[:n_db]).to(dev), t(vids[:n_db]).to(dev)
+    by_kernel = {name: ms / MINE_PROFILE_DB_CHUNKS for name, ms in device_ms_by_kernel(
+        lambda: S.topk_similar(qk, qv, qi, dbk, dbv, k=1, db_chunk=MINE_CHUNK), 1).items()}
+    tile_ms = sum(by_kernel.values())
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
+    tiles = -(-MINE_N // MINE_CHUNK)
+    padded = tiles * MINE_CHUNK
+    pass_device_ms = tile_ms * tiles * tiles
+    floor_ms = MINE_N * MINE_N * 21 * MINE_FUSED_OPS / FP32_OPS_PER_S * 1e3
+    route_bytes = padded * padded * 21 * MINE_ROUTE_BYTES
+    route_bytes_ms = route_bytes / HBM_BYTES_PER_S * 1e3
+    projected_s = warm_s * (MINE_PROJECTED_N / MINE_N) ** 2
+    print(f"mining {MINE_N} hands (k=1, chunks {MINE_CHUNK}): cold {cold_s:.3f} s, warm "
+          f"{warm_s:.3f} s -> {MINE_N / warm_s:.1f} hands/s; every pair valid; the first {q} "
+          f"queries equal the CPU's bit for bit (CPU {cpu_s:.2f} s); projected "
+          f"{MINE_PROJECTED_N} hands: {projected_s:.1f} s")
+    print(f"mining distance pass: {tile_ms:.3f} device ms a tile of {MINE_CHUNK} x "
+          f"{MINE_CHUNK}, {pass_device_ms:.1f} ms for the pass ({tiles}^2 tiles); bound "
+          f"{floor_ms:.2f} ms "
+          f"(a fused pass, {MINE_FUSED_OPS} float32 operations an element a joint); the "
+          f"route moves {route_bytes / 1e12:.2f} TB, {route_bytes_ms:.1f} ms at the HBM rate")
+    for name, ms in top.items():
+        print(f"  {ms:9.3f} ms  {name[:110]}")
+
+    # the tie corpus: card against CPU
+    trng = np.random.default_rng(seed + 1)
+    base = trng.integers(0, 4, size=(TIE_POSES, 21, 2)).astype(np.float32)
+    tkp = base[trng.integers(0, TIE_POSES, size=TIE_N)]
+    tvids = trng.integers(0, TIE_VIDEOS, size=TIE_N).astype(np.int32)
+    tkw = dict(k=TIE_K, query_chunk=TIE_QUERY_CHUNK, db_chunk=TIE_DB_CHUNK)
+    want_d, want_i = S.mine_similar_hands(tkp, tvids, device="cpu", **tkw)
+    got_d, got_i = S.mine_similar_hands(tkp, tvids, **tkw)
+    require(same_bits(got_d, want_d) and same_bits(got_i, want_i),
+            "the tie corpus on the card differs from the CPU")
+    ties = int((np.diff(want_d, axis=1) == 0).sum())
+    require(ties > 0, "the tie corpus holds no tie")
+    print(f"mining tie corpus ({TIE_N} hands on the grid {{0..3}}, k={TIE_K}, chunks "
+          f"{TIE_QUERY_CHUNK}/{TIE_DB_CHUNK}): card == CPU bit for bit; "
+          f"{ties} equal neighbours in the top {TIE_K}")
+
+    # the CLI on an unpaired JSON of nested <video>/frame_x.jpg names
+    out_dir = native.BUILD_DIR / f"mining_{seed}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    n = MINE_CLI_N
+    images = [{"id": j, "file_name": f"frames/video{int(vids[j]):04d}/frame_{j:06d}.jpg",
+               "width": CROP, "height": CROP} for j in range(n)]
+    annotations = [{"image_id": j, "hand_id": j, "left_right": "Right",
+                    "keypoint_25d": np.concatenate([kp[j], np.zeros((21, 1), np.float32)],
+                                                   1).reshape(-1).tolist(),
+                    "positive_sample": [], "distance": []} for j in range(n)]
+    src, dst = out_dir / "unpaired.json", out_dir / "paired.json"
+    src.write_text(json.dumps({"images": images, "annotations": annotations}))
+    t0 = time.perf_counter()
+    mining_run.main(["--input", str(src), "--output", str(dst), "--k", "1",
+                     "--query_chunk", str(MINE_CHUNK), "--db_chunk", str(MINE_CHUNK)])
+    cli_s = time.perf_counter() - t0
+    # no other run of the phase mines these n hands among themselves
+    t0 = time.perf_counter()
+    lib_d, lib_i = S.mine_similar_hands(kp[:n], vids[:n], **kw)
+    lib_s = time.perf_counter() - t0
+    mined = json.loads(dst.read_text())["annotations"]
+    require([a["positive_sample"] for a in mined] == lib_i.tolist(),
+            "the mining CLI's positives differ from the library call's")
+    require(same_bits(np.asarray([a["distance"] for a in mined], np.float32), lib_d),
+            "the mining CLI's distances differ from the library call's")
+    print(f"mining CLI on {n} annotations: {cli_s:.2f} s, positives equal to the library "
+          f"call's ({lib_s:.2f} s)")
+    return {"hands": MINE_N, "cold_s": cold_s, "warm_s": warm_s,
+            "hands_per_s": MINE_N / warm_s, "cpu_queries_s": cpu_s,
+            "tile_device_ms": tile_ms, "pass_device_ms": pass_device_ms,
+            "device_ms_by_kernel": top, "bound_ms": floor_ms, "bound_by": "operations",
+            "route_bytes": route_bytes, "route_bytes_ms": route_bytes_ms,
+            "projected_2m_s": projected_s, "tie_equal_neighbours": ties, "cli_s": cli_s,
+            "cli_library_s": lib_s}
+
+
+def loader_phase(seed: int) -> dict:
+    """Phase 19's loader: raw pair batches of the synthetic corpus through
+    grain_batch_iterator at each worker count. The serial epoch's samples
+    equal raw_pair bit for bit; every other count gives the same samples,
+    each equal to the serial one bit for bit."""
+    import os
+
+    import numpy as np
+
+    from simhand_tpu_torch.data.augment_cv2 import AugmentFlags, AugmentParams
+    from simhand_tpu_torch.data.grain_loader import grain_batch_iterator
+    from simhand_tpu_torch.data.pipeline import PretrainDataset
+    from simhand_tpu_torch.data.sources import SyntheticHandSource
+
+    t0 = time.perf_counter()
+    src = SyntheticHandSource(LOADER_IMAGES, side=CROP, seed=seed)
+    corpus_s = time.perf_counter() - t0
+    ds = PretrainDataset(src, "simhand_w", AugmentFlags(crop=True, resize=True, rotate=True),
+                         AugmentParams(), seed=seed)
+    index = {hash(src.images[j].tobytes()): j for j in range(LOADER_IMAGES)}
+    require(len(index) == LOADER_IMAGES, "two synthetic crops are equal")
+    cores = os.cpu_count() or 1
+    ref, row_of, perf = None, None, {}
+    for workers in (w for w in LOADER_WORKERS if w <= cores):
+        t0 = time.perf_counter()
+        batches, first_s = [], None
+        for b in grain_batch_iterator(ds, LOADER_BATCH, seed=seed, epoch=1,
+                                      num_workers=workers, raw=True):
+            batches.append(b)
+            first_s = first_s or time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        after_first = sum(len(b["image1"]) for b in batches[1:]) / (seconds - first_s)
+        got = {k: np.concatenate([b[k] for b in batches]) for k in batches[0]}
+        seen = [index[hash(img.tobytes())] for img in got["image1"]]
+        require(len(seen) == len(set(seen)), f"a sample twice in an epoch ({workers} workers)")
+        if ref is None:
+            for r, j in enumerate(seen):
+                want = ds.raw_pair(j)
+                require(all(same_bits(got[k][r], want[k]) for k in want),
+                        f"sample {j} of the serial epoch differs from raw_pair")
+            ref, row_of = got, {j: r for r, j in enumerate(seen)}
+        require(sorted(seen) == sorted(row_of), f"{workers} workers gave another epoch than serial")
+        rows = [row_of[j] for j in seen]
+        require(all(same_bits(got[k], ref[k][rows]) for k in ref),
+                f"a sample from {workers} workers differs from the serial one")
+        perf[workers] = {"pairs_per_s": len(seen) / seconds, "first_batch_s": first_s,
+                         "pairs_per_s_after_first": after_first, "seconds": seconds}
+        print(f"loader: {workers} workers, {len(seen)} raw pairs in {seconds:.3f} s = "
+              f"{len(seen) / seconds:.1f} pairs/s (start-up included; first batch after "
+              f"{first_s:.3f} s, {after_first:.1f} pairs/s after it)")
+    print(f"loader: os.cpu_count() = {cores}; the synthetic corpus built in {corpus_s:.2f} s")
+    return {"workers": perf, "cpu_count": cores, "samples": len(row_of), "corpus_s": corpus_s}
+
+def processes_below(pid: int) -> dict[int, str]:
+    """Every process below ``pid`` (children, theirs, ...) by pid, with its
+    command, from the parent links in /proc."""
+    import os
+
+    parent, command = {}, {}
+    for entry in os.listdir("/proc"):
+        try:
+            stat = open(f"/proc/{entry}/stat").read() if entry.isdigit() else ""
+        except OSError:
+            continue
+        if stat:
+            parent[int(entry)] = int(stat[stat.rindex(")") + 2:].split()[1])
+            command[int(entry)] = stat[stat.index("(") + 1:stat.rindex(")")]
+    below, todo = {}, [pid]
+    while todo:
+        kids = [c for c, p in parent.items() if p == todo[-1]]
+        todo.pop()
+        below.update({c: command[c] for c in kids})
+        todo += kids
+    return below
+
+
+def stop_processes_left() -> dict[int, str]:
+    """Kills and reaps every process still running below this one, and
+    returns what it found (none, when each phase stopped what it started)."""
+    import os
+    import signal
+
+    left = processes_below(os.getpid())
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    for pid in left:
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:
+            pass
+    deadline = time.monotonic() + 5
+    while processes_below(os.getpid()) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    return left
+
+
 def plain_family(state, batch) -> tuple[dict, dict]:
     """simhand-base steps through kernels #1 and #3: step 0's loss and
     dL/dprojections against the dense route on the same projections, the
@@ -3179,6 +3465,18 @@ def main() -> int:
     server_perf = server_phase(kernel_walk)
     del kernel_walk
     entry_serving_perf = serving_entry_points(args.seed)
+    from simhand_tpu_torch.data.grain_loader import stop_worker_server
+
+    t19 = time.perf_counter()
+    try:
+        mining_perf = mining_path(args.seed)
+        loader_perf = loader_phase(args.seed)
+    finally:
+        stop_worker_server()
+    phase_19_s = time.perf_counter() - t19
+    print(f"phase 19 (mining and the loader): {phase_19_s:.1f} s")
+    left = stop_processes_left()
+    require(not left, f"processes left running after the phases: {left}")
 
     kernels = []
     for name, shapes in report.items():
@@ -3253,7 +3551,9 @@ def main() -> int:
                       "conv1x1_step": conv_perf, "conv1x1_f32_step": f32_perf,
                       "plain_family_step": plain_perf,
                       "serving": serve_perf, "server": server_perf,
-                      "serving_entry_points": entry_serving_perf, "card": card}))
+                      "serving_entry_points": entry_serving_perf,
+                      "mining": mining_perf, "loader": loader_perf,
+                      "phase_19_s": phase_19_s, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

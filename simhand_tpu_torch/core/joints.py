@@ -114,6 +114,10 @@ class JointMap:
         return joints[..., self.interhand_to_freihand_idx, :]
 
 
+# MANO's fingertip vertex ids (thumb, index, middle, ring, pinky), which
+# complete its 16 regressed joints to 21 (simhand_tpu/finetune/mano.py:25)
+TIP_VERTEX_IDS = (744, 320, 443, 555, 672)
+
 # AssemblyHands -> MANO remap (reference: src/data_loader/utils.py:459-487).
 # joints_mano[AH_TO_MANO[i]] = joints_ah[i]
 AH_TO_MANO = np.array(

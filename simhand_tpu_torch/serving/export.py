@@ -222,7 +222,16 @@ def shard_over_devices(call_or_path, devices=None):
 def _init_variables(surface: str, backbone: str, side: int, dtype, device) -> nn.Module:
     """The surface over a model initialised with flax's initialisers from
     seed 0 (``train.state.init_weights``; the reference's
-    ``jax.random.key(0)`` is another draw)."""
+    ``jax.random.key(0)`` is another draw).
+
+    A departure from the JAX package: its ``_init_variables``
+    (``simhand_tpu/serving/export.py:257-263``) builds the detnet at the
+    default ``hm_res=32``, while the surface it exports builds
+    ``hm_res=side // 4``, so its ``export.main --surface detnet`` (``--pth``
+    included, which goes through that init first) works only at ``--side
+    128`` and raises ``TypeError`` at any other side. The port builds the
+    model through ``detnet_apply`` at ``hm_res=side // 4`` and exports a
+    detnet at any side."""
     from simhand_tpu_torch.train.state import init_weights
 
     forward = (detnet_apply(backbone, dtype, side, device) if surface == "detnet"

@@ -246,6 +246,29 @@ def test_export_main_detnet_pth_in_both_packages(tmp_path, capsys, monkeypatch):
                                    atol=1e-4)
 
 
+def test_export_main_detnet_at_side_256(tmp_path):
+    """The port's export.main exports a detnet at a side other than 128
+    (the JAX package's main raises there; ``_init_variables`` states the
+    departure): the artifact equals the module it was exported from, whose
+    maps are 64x64."""
+    side = 256
+    flags = ["--surface", "detnet", "--backbone", "18", "--side", str(side), "--dtype", "f32",
+             "--batch", "1", "--random_init", "--device", "cpu", "--out", str(tmp_path / "d.pt2")]
+    info = E.main(flags)
+    assert info["surface"] == "detnet" and info["batch"] == 1
+    call, meta = E.load_artifact(str(tmp_path / "d.pt2"), "cpu")
+    assert meta["side"] == side
+    forward = E._init_variables("detnet", "18", side, torch.float32, torch.device("cpu")).eval()
+    x = np.random.default_rng(8).normal(size=(1, side, side, 3)).astype(np.float32)
+    got = call(x)
+    with torch.no_grad():
+        want = forward(torch.from_numpy(x))
+    assert set(got) == set(want) == {"h_map", "uv", "xyz", "delta"}
+    assert got["h_map"].shape == (1, side // 4, side // 4, 21)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+
+
 def test_export_main_encoder_pth_in_both_packages(enc18, tmp_path, monkeypatch):
     """A torchvision-layout encoder .pth written by the reference
     (``save_torch_checkpoint``) through both packages' export.main: the

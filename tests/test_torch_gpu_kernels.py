@@ -4,7 +4,8 @@ convolution with statistics of ``csrc/conv1x1.cu``, and the convolution with
 a bias / residual / ReLU epilogue of ``csrc/conv_bias.cu`` with the whole
 bottleneck block built on it), against their plain PyTorch versions; and
 the input path on the card (the augmentation against the CPU on the same
-draws, the prefetched batches against the host's).
+draws, the prefetched batches against the host's); and similar-hand mining
+on the card against the CPU, bit for bit.
 
 These tests need a CUDA card and ``nvcc``; without them they skip. They
 import no JAX, so they run where the card is, without the repository's
@@ -765,3 +766,27 @@ def test_artifacts_exported_on_the_cpu_serve_on_the_card(cuda, tmp_path):
             err = (on_card[k].cpu() - on_cpu[k]).abs().max()
             limit = 1e-4 if name == "detnet" else 1e-5 * float(on_cpu[k].abs().max())
             assert err <= limit, (name, k, float(err))
+
+
+@pytest.mark.gpu
+def test_mining_on_the_card_equals_the_cpu(cuda):
+    """Similar-hand mining on a corpus of hands on the integer grid
+    {0, 1, 2, 3} (copies of 64 poses over 16 videos, so exact ties abound),
+    k = 3, ragged chunks, both query routes: the card's distances equal the
+    CPU's bit for bit and its indices equal them, the order of ties
+    included (``min``'s first index on both devices)."""
+    import numpy as np
+
+    from simhand_tpu_torch.mining import mine_similar_hands
+
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 4, size=(64, 21, 2)).astype(np.float32)
+    kp = base[rng.integers(0, 64, size=1024)]
+    vids = rng.integers(0, 16, size=1024).astype(np.int32)
+    kw = dict(k=3, query_chunk=300, db_chunk=384)
+    want_d, want_i = mine_similar_hands(kp, vids, device="cpu", **kw)
+    assert int((np.diff(want_d, axis=1) == 0).sum()) > 100
+    for single in (True, False):
+        got_d, got_i = mine_similar_hands(kp, vids, single_program=single, **kw)
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_array_equal(got_d.view(np.uint32), want_d.view(np.uint32))
