@@ -233,6 +233,40 @@
    ``os.cpu_count()``, the corpus's build seconds, and the phase's seconds.
    Then the fork server and its resource tracker are stopped and waited
    for, and the run fails if any process it started is still running.
+20. between 18 and 19, the encoder's last options and the data-parallel
+   step (ResNet-50, 128x128, bf16, B = 256 pairs, simhand_w). Here: the
+   space-to-depth stem against conv7 with ``s2d_stem_kernel``'s weights in
+   float32 (TF32 off) within 1e-5 of the largest output; the bf16 step
+   with each stem, 3 steps each, then timed in turns; remat against the
+   same step without it under cuDNN's deterministic mode (the loss and the
+   running statistics bit for bit, the gradients within 1e-5 of each
+   tensor's largest), the peak memory and ms/step of both in turns; remat
+   with ``conv1x1_fuse_min_cin=512`` launching #10 30 times a step (the
+   forward's 15 and the recomputation's). Then, in processes of this
+   script, all under one deadline and killed past it: the NCCL group at
+   world size 1, where the sharded step (``make_train_step(...,
+   axis=create_mesh())``) equals the single-device step bit for bit over 2
+   steps, and the ranks agree on a host flag over the gloo group beside
+   NCCL; then two ranks on the one card over gloo (two NCCL ranks on one
+   device are tried, and NCCL's refusal printed; gloo takes the CUDA
+   tensors of every collective the axis runs): the loss layer on this
+   process's projections sliced to each rank (both families, both routes: the loss within rel 1e-5 of the single-device
+   loss, each rank's dz within 1e-5 of the largest of the global dz, x1
+   on the kernel route and x2 on the dense one, #2/#4 or #1/#3 launched
+   once a rank); the whole step with cross-replica BatchNorm on the kernel
+   and the dense route (3 steps: finite losses, the ranks' parameters and
+   statistics equal bit for bit after each, step 0 within rel 1e-3 of one
+   process's step on the global batch and of a one-process oracle of the
+   same function, the head's BatchNorm per rank, #2/#4 every step); a
+   float32 forward (TF32 off) of the two ranks against that oracle's, each
+   rank's encoder embeddings within 3e-4 of its largest and the sharded
+   loss within rel 1e-5 (per-replica BatchNorm's distance and the bf16
+   forward's printed beside them); the per-replica
+   statistics after a step against the mean of the serial per-shard
+   forwards; 2 steps with ``conv1x1_fuse_min_cin=512`` (#10 15 times a
+   step on each rank). Prints the two-rank step's ms/step, the gradient
+   pmean's and the projections' all_gather's ms (two processes sharing one
+   card: no scaling claim), and the phase's seconds.
 
 Any failure ends the run with a non-zero exit code. The last line of the
 output is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -3334,6 +3368,574 @@ def loader_phase(seed: int) -> dict:
     print(f"loader: os.cpu_count() = {cores}; the synthetic corpus built in {corpus_s:.2f} s")
     return {"workers": perf, "cpu_count": cores, "samples": len(row_of), "corpus_s": corpus_s}
 
+# phase 20, the encoder's last options and the data-parallel step. In this
+# process: the s2d stem against conv7 with s2d_stem_kernel's weights
+# (float32, TF32 off, S2D_IMAGES images at SIDE), the bf16 step with each
+# stem, and remat against the same step without it (cuDNN deterministic);
+# then, in processes of their own: the NCCL group at world size 1 (the
+# sharded step against the single-device step, DP_W1_STEPS steps), and
+# DP_WORLD ranks on the one card over gloo (NCCL refuses two ranks on one
+# device): the loss layer on this process's projections, the whole step
+# with cross-replica BatchNorm (kernel and dense routes, DP_STEPS steps), the
+# per-replica statistics against the serial oracle, DP_CONV_STEPS steps
+# with conv1x1_fuse_min_cin, timings. Every child shares DP_DEADLINE_S.
+S2D_IMAGES, S2D_RTOL, ENCODER_STEPS = 64, 1e-5, 3
+# remat's parameter gradients against the step's without it, relative to
+# each tensor's largest: the recomputed forward runs the same cuDNN
+# algorithms (deterministic mode) on the same inputs, so it is expected bit
+# for bit; the limit leaves room for a kernel that sums in another order
+REMAT_GRAD_RTOL = 1e-5
+DP_WORLD, DP_STEPS, DP_CONV_STEPS, DP_W1_STEPS, DP_TIMED = 2, 3, 2, 2, 3
+DP_DEADLINE_S = 150
+# the loss layer: the sharded loss against the single-device loss on the
+# same projections, and each rank's dz against the global dz (x1 on the
+# kernel route, x DP_WORLD on the dense one) relative to its largest
+DP_LOSS_RTOL, DP_DZ_RTOL = 1e-5, 1e-5
+# the whole step's step-0 loss against the single-process step on the
+# global batch, and against _split_head_oracle's loss in bf16. Two bf16
+# forwards whose BatchNorm statistics differ in their last bits diverge at
+# this random init: cross-replica BatchNorm forms the variance as
+# E[x^2] - mu^2 in float32 from the ranks' sums where cuDNN's batch_norm
+# takes it in one pass, and 53 BatchNorm outputs rounded to bf16 carry that
+# on (the two-rank embeddings 8.4e-2 in norm from the oracle's, where
+# float32 gives 3.4e-5; the step-0 loss 4.91e-4 from the oracle's on an
+# H100). The single process departs further (6.10e-4): the projection
+# head's BatchNorm1d is per-replica in both packages, so each rank
+# normalises it over its 256 rows where one process does over 512
+DP_STEP_LOSS_RTOL = 1e-3
+# the sync, held where rounding does not diverge: a float32 forward (TF32
+# off) of the two ranks against _split_head_oracle's, each rank's encoder
+# embeddings relative to the oracle's largest (7.3e-5 on an H100, where
+# per-replica BatchNorm gives 0.18) and the sharded loss relative (3.1e-7,
+# where one process's, with the head over every row, is 8.5e-5 away)
+DP_EMB_RTOL, DP_ORACLE_LOSS_RTOL = 3e-4, 1e-5
+# per-replica statistics against the serial oracle (tests/test_train.py:247)
+DP_ORACLE_RTOL, DP_ORACLE_ATOL = 2e-3, 2e-4
+
+
+def s2d_stem_check(seed: int) -> float:
+    """The s2d stem against the conv7 stem with s2d_stem_kernel's weights in
+    float32 (TF32 off): the largest difference over the largest output."""
+    import torch
+
+    from simhand_tpu_torch.models.layers import Conv2d
+    from simhand_tpu_torch.models.resnet import s2d_stem_kernel, space_to_depth
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(S2D_IMAGES, SIDE, SIDE, 3, device="cuda", generator=gen)
+    w7 = torch.randn(64, 3, 7, 7, device="cuda", generator=gen) / 12
+    conv7 = Conv2d(3, 64, 7, 2, padding=3).cuda()
+    s2d = Conv2d(12, 64, 4, 1, padding=((2, 1), (2, 1))).cuda()
+    with torch.no_grad():
+        conv7.weight.copy_(w7)
+        s2d.weight.copy_(s2d_stem_kernel(w7))
+        want = conv7(x.permute(0, 3, 1, 2))
+        got = s2d(space_to_depth(x, 2).permute(0, 3, 1, 2))
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def encoder_options_path(seed: int, batch) -> dict:
+    """The s2d stem and remat on the bf16 simhand_w step at B = PAIRS."""
+    import torch
+
+    from simhand_tpu_torch.ops import conv1x1 as C
+    from simhand_tpu_torch.train import make_train_step
+
+    cfg = step_config()
+    err = s2d_stem_check(seed)
+    print(f"s2d stem vs conv7 (float32, {S2D_IMAGES} images): max diff {err:.3e} of the largest")
+    require(err <= S2D_RTOL, f"the s2d stem departs {err} from conv7 with its kernel's weights")
+    states = {"conv7": new_state(seed), "s2d": new_state(seed, stem="space_to_depth")}
+    steps = {k: make_train_step(s.model, cfg) for k, s in states.items()}
+    losses = {}
+    for k in states:
+        states[k], losses[k] = run_steps(steps[k], states[k], batch, k, steps=ENCODER_STEPS)
+    stem_ms = {k: [] for k in states}
+    for k in ("conv7", "s2d", "s2d", "conv7"):
+        states[k], _, dt = timed(steps[k], states[k], batch, ENCODER_STEPS)
+        stem_ms[k].append(dt * 1e3)
+    stem_ms = {k: sum(v) / len(v) for k, v in stem_ms.items()}
+    print(f"stems: losses {losses}; ms/step in turns {stem_ms}")
+    del states, steps
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        states = {"plain": new_state(seed), "remat": new_state(seed, remat=True)}
+        first = {k: step0(s, batch, cfg) for k, s in states.items()}
+        (lp, gp), (lr, gr) = first["plain"], first["remat"]
+        names = [n for n, _ in states["plain"].model.named_parameters()]
+        worst = max((float((a - b).abs().max() / b.abs().max().clamp_min(1e-30)), n)
+                    for a, b, n in zip(gr, gp, names))
+        equal = sum(torch.equal(a, b) for a, b in zip(gr, gp))
+        stats = [(n, a, b) for (n, a), b in zip(states["remat"].model.named_buffers(),
+                                                 states["plain"].model.buffers())
+                 if "running" in n]
+        stats_equal = all(torch.equal(a, b) for _, a, b in stats)
+        print(f"remat step 0: loss {lr!r} vs {lp!r}; gradients bit-equal {equal}/{len(gp)}, "
+              f"worst {worst[1]} {worst[0]:.3e} of its largest; running statistics equal "
+              f"{stats_equal}")
+        require(lr == lp, f"remat's step-0 loss {lr} differs from the plain step's {lp}")
+        require(worst[0] <= REMAT_GRAD_RTOL, f"remat's gradients depart {worst}")
+        require(stats_equal, "remat's running statistics differ from the plain step's: "
+                             "the recomputed forward updated them")
+        del first, gp, gr
+        steps = {k: make_train_step(s.model, cfg) for k, s in states.items()}
+        peak, remat_ms = {}, {k: [] for k in states}
+        for k in states:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            states[k], _ = run_steps(steps[k], states[k], batch, f"{k} (remat check)", steps=1)
+            peak[k] = torch.cuda.max_memory_allocated() / 2**30
+        for k in ("plain", "remat", "remat", "plain"):
+            states[k], _, dt = timed(steps[k], states[k], batch, ENCODER_STEPS)
+            remat_ms[k].append(dt * 1e3)
+        remat_ms = {k: sum(v) / len(v) for k, v in remat_ms.items()}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"remat: peak GiB allocated {peak}; ms/step in turns {remat_ms}")
+    del states, steps
+
+    # remat with the fused conv1x1 sites: the recomputed forward launches #10 again
+    state = new_state(seed, remat=True, conv1x1_fuse_min_cin=CONV_FUSE_MIN_CIN)
+    C.reset_launches()
+    state, _ = run_steps(make_train_step(state.model, cfg), state, batch, "remat conv1x1",
+                         steps=1)
+    launches = C.conv1x1_stats.launches
+    print(f"remat with conv1x1_fuse_min_cin={CONV_FUSE_MIN_CIN}: #10 launches a step {launches}")
+    require(launches == 2 * CONV_PER_STEP,
+            f"#10 launched {launches} times in a remat step, not {2 * CONV_PER_STEP} "
+            f"(the forward's {CONV_PER_STEP} and the recomputation's)")
+    return {"s2d_stem_rel_err": err, "stem_losses": losses, "stem_ms": stem_ms,
+            "remat_loss0": lr, "remat_grad_worst_rel": worst[0], "remat_grads_bit_equal": equal,
+            "remat_peak_gib": peak, "remat_ms": remat_ms, "remat_conv1x1_launches": launches}
+
+
+def _replicated_bits(axis, model) -> bool:
+    """Whether this rank's parameters and buffers equal rank 0's bit for bit."""
+    import torch
+
+    flat = torch.cat([t.detach().reshape(-1).float() for t in
+                      (*model.parameters(), *model.buffers())])
+    return bool(axis.reduce_raw(torch.tensor(0.0 if torch.equal(flat, axis.broadcast(flat))
+                                             else 1.0, device=flat.device), "max") == 0)
+
+
+def _rank_rows(rank: int, n: int):
+    """The global rows of rank's [view1; view2] when each rank holds n pairs."""
+    import torch
+
+    return torch.cat([torch.arange(n), PAIRS + torch.arange(n)]).cuda() + rank * n
+
+
+def _split_head_oracle(seed: int, batch, dtype) -> dict:
+    """The function the DP_WORLD-rank step computes, in one process: the
+    whole batch through the encoder (its BatchNorm over every row, as
+    cross-replica BatchNorm gives it), then the projection head on each
+    rank's rows alone (its BatchNorm is per-replica). Returns the encoder's
+    embeddings ("emb") and those projections ("proj") in the global row
+    order, the head on every row at once ("whole", one process's
+    projections), and each rank's rows through the encoder alone ("alone",
+    per-replica BatchNorm)."""
+    import torch
+
+    model = new_state(seed, dtype).model.train()
+    n = PAIRS // DP_WORLD
+    images = torch.cat([batch["transformed_image1"], batch["transformed_image2"]])
+    with torch.no_grad():
+        emb = model.encoder(images)
+        heads = [model.projection_head(emb[_rank_rows(r, n)]) for r in range(DP_WORLD)]
+        alone = [model.encoder(images[_rank_rows(r, n)]) for r in range(DP_WORLD)]
+        whole = model.projection_head(emb)
+    return {"emb": emb, "proj": torch.cat([h[:n] for h in heads] + [h[n:] for h in heads]),
+            "whole": whole, "alone": alone}
+
+
+def _dp_forward_oracle(axis, seed: int, batch, local) -> tuple[dict, object]:
+    """Each rank's forward with cross-replica BatchNorm against the oracle
+    of the same function: the encoder embeddings (float32 held, bf16
+    printed) and, in float32, the sharded loss. Returns the record and
+    the bf16 oracle's projections."""
+    import torch
+
+    from simhand_tpu_torch.models import contrastive_loss_from_projections
+
+    cfg, rows = step_config(), _rank_rows(axis.index, PAIRS // axis.size)
+    images = torch.cat([local["transformed_image1"], local["transformed_image2"]])
+    out = {}
+    for name, dtype in (("float32", torch.float32), ("bf16", torch.bfloat16)):
+        oracle = _split_head_oracle(seed, batch, dtype)
+        want = oracle["emb"][rows]
+        probe = new_state(seed, dtype, bn_axis=axis).model.train()
+        with torch.no_grad():
+            got, proj = probe(images)
+            loss = float(contrastive_loss_from_projections(proj, local, cfg, axis)[0])
+            oracle_loss = float(contrastive_loss_from_projections(oracle["proj"], batch, cfg)[0])
+            single_loss = float(contrastive_loss_from_projections(oracle["whole"], batch, cfg)[0])
+        scale, norm = float(want.abs().max()), float(want.norm())
+        alone = oracle["alone"][axis.index]
+        out[name] = {
+            "emb": float((got - want).abs().max()) / scale,
+            "emb_per_replica": float((alone - want).abs().max()) / scale,
+            "emb_norm": float((got - want).norm()) / norm,
+            "emb_per_replica_norm": float((alone - want).norm()) / norm,
+            "loss": loss, "oracle_loss": oracle_loss, "single_loss": single_loss,
+            "loss_rel": abs(loss - oracle_loss) / abs(oracle_loss),
+            "single_rel": abs(loss - single_loss) / abs(single_loss)}
+        del want, probe, got, proj, alone
+    f32 = out["float32"]
+    require(f32["emb"] <= DP_EMB_RTOL,
+            f"rank {axis.index}: float32 embeddings depart {f32['emb']} from the oracle's")
+    require(f32["loss_rel"] <= DP_ORACLE_LOSS_RTOL,
+            f"rank {axis.index}: float32 loss {f32['loss']} against the oracle's "
+            f"{f32['oracle_loss']}")
+    return out, oracle["proj"]
+
+
+def _dp_loss_layer(axis, batch, proj) -> dict:
+    """The sharded loss of each family and route against the single-device
+    loss on the same projections: values, dz with its scale, launches."""
+    import torch
+
+    from simhand_tpu_torch.losses import ntxent_kernels as K
+    from simhand_tpu_torch.models import contrastive_loss_from_projections
+    from simhand_tpu_torch.parallel import shard_batch
+
+    rows = _rank_rows(axis.index, PAIRS // axis.size)
+    local = shard_batch(axis, batch)
+    out = {}
+    for family, kernels in (("simhand_w", ("weighted_ntxent_denominator", "weighted_grad_rows")),
+                            ("simhand-base", ("ntxent_denominator", "ntxent_grad"))):
+        for route in ("kernel", "dense"):
+            cfg = step_config(experiment_type=family, use_pallas=route == "kernel")
+            p = proj.clone().requires_grad_()
+            loss_g, _ = contrastive_loss_from_projections(p, batch, cfg)
+            dz_g = torch.autograd.grad(loss_g, p)[0][rows] * (1 if route == "kernel"
+                                                             else axis.size)
+            K.reset_launches()
+            p = proj[rows].clone().requires_grad_()
+            loss, _ = contrastive_loss_from_projections(p, local, cfg, axis)
+            dz = torch.autograd.grad(loss, p)[0]
+            launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+            rel = abs(float(loss) - float(loss_g)) / abs(float(loss_g))
+            dz_err = float((dz - dz_g).abs().max() / dz_g.abs().max())
+            key = f"{family}_{route}"
+            out[key] = {"loss": float(loss), "single_loss": float(loss_g), "rel": rel,
+                        "dz_rel": dz_err, "launches": launches}
+            require(rel <= DP_LOSS_RTOL, f"rank {axis.index} {key}: loss departs {rel}")
+            require(dz_err <= DP_DZ_RTOL, f"rank {axis.index} {key}: dz departs {dz_err}")
+            want = {k: int(route == "kernel" and k in kernels) for k in launches}
+            require(launches == want, f"rank {axis.index} {key}: launches {launches}, not {want}")
+    return out
+
+
+def _dp_rank(seed: int, rank: int, port: int, proj_file: str) -> dict:
+    """One of DP_WORLD ranks on the one card (phase 20)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from simhand_tpu_torch.losses import ntxent_kernels as K
+    from simhand_tpu_torch.models import contrastive_loss_from_projections
+    from simhand_tpu_torch.ops import conv1x1 as C
+    from simhand_tpu_torch.parallel import create_mesh, shard_batch
+    from simhand_tpu_torch.train import make_train_step
+    from simhand_tpu_torch.train.loop import pmean_tensors
+
+    timeout = datetime.timedelta(seconds=DP_DEADLINE_S)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=DP_WORLD, timeout=timeout)
+    axis = create_mesh()
+    out = {"rank": rank}
+    batch = synthetic_batch(seed)
+    out["loss_layer"] = _dp_loss_layer(axis, batch, torch.load(proj_file).cuda())
+    local = shard_batch(axis, batch)
+
+    out["forward"], proj_oracle = _dp_forward_oracle(axis, seed, batch, local)
+
+    for route in ("kernel", "dense"):
+        cfg = step_config(use_pallas=route == "kernel")
+        with torch.no_grad():
+            oracle0 = float(contrastive_loss_from_projections(proj_oracle, batch, cfg)[0])
+        if rank == 0:
+            ref = new_state(seed)
+            single0 = float(make_train_step(ref.model, cfg)(ref, batch)[1]["contrastive_loss"])
+            del ref
+        state = new_state(seed, bn_axis=axis)
+        step = make_train_step(state.model, cfg, axis=axis)
+        K.reset_launches()
+        losses, replicated = [], []
+        for _ in range(DP_STEPS):
+            state, metrics = step(state, local)
+            losses.append(float(metrics["contrastive_loss"]))
+            replicated.append(_replicated_bits(axis, state.model))
+        launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+        rec = {"losses": losses, "replicated": replicated, "launches": launches,
+               "oracle_loss0": oracle0, "oracle_rel": abs(losses[0] - oracle0) / abs(oracle0)}
+        require(all(math.isfinite(v) for v in losses), f"rank {rank} {route}: losses {losses}")
+        require(rec["oracle_rel"] <= DP_STEP_LOSS_RTOL,
+                f"{route} two-rank step-0 loss {losses[0]} against the oracle's {oracle0}")
+        require(all(replicated), f"rank {rank} {route}: the ranks' states differ after a step")
+        if rank == 0:
+            rec.update(single_loss0=single0, loss0_rel=abs(losses[0] - single0) / abs(single0))
+            require(rec["loss0_rel"] <= DP_STEP_LOSS_RTOL,
+                    f"{route} two-rank step-0 loss {losses[0]} against one process's {single0}")
+        if route == "kernel":
+            require(launches["weighted_ntxent_denominator"] == DP_STEPS
+                    and launches["weighted_grad_rows"] == DP_STEPS,
+                    f"rank {rank}: #2/#4 launches {launches}")
+            torch.cuda.synchronize()
+            axis.reduce_raw(torch.zeros(1, device="cuda"), "sum")
+            t0 = time.perf_counter()
+            for _ in range(DP_TIMED):
+                state, metrics = step(state, local)
+            float(metrics["contrastive_loss"])
+            rec["step_ms"] = (time.perf_counter() - t0) / DP_TIMED * 1e3
+            grads = [p.detach().clone() for p in state.params]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DP_TIMED):
+                pmean_tensors(axis, grads)
+            torch.cuda.synchronize()
+            rec["grad_pmean_ms"] = (time.perf_counter() - t0) / DP_TIMED * 1e3
+            rec["grad_mb"] = sum(g.numel() for g in grads) * 4 / 1e6
+            z = torch.randn(2 * PAIRS // DP_WORLD, 128, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DP_TIMED):
+                axis.gather_raw(z)
+            torch.cuda.synchronize()
+            rec["z_gather_ms"] = (time.perf_counter() - t0) / DP_TIMED * 1e3
+            del grads
+        out[f"step_{route}"] = rec
+        del state, step
+    del proj_oracle
+
+    # per-replica BatchNorm: the step's statistics against the serial oracle
+    state = new_state(seed)
+    init = copy.deepcopy(state.model.state_dict())
+    state, _ = make_train_step(state.model, step_config(), axis=axis)(state, local)
+    got = {k: v.clone() for k, v in state.model.state_dict().items()
+           if k.endswith(("_mean", "_var"))}
+    oracle_err = 0.0
+    if rank == 0:
+        shards = []
+        for r in range(DP_WORLD):
+            state.model.load_state_dict(init)
+            state.model.train()
+            rows = slice(r * PAIRS // DP_WORLD, (r + 1) * PAIRS // DP_WORLD)
+            with torch.no_grad():
+                state.model(torch.cat([batch["transformed_image1"][rows],
+                                       batch["transformed_image2"][rows]]))
+            shards.append({k: v.clone() for k, v in state.model.state_dict().items()
+                           if k in got})
+        for k, v in got.items():
+            want = sum(s[k] for s in shards) / DP_WORLD
+            ok = torch.allclose(v, want, rtol=DP_ORACLE_RTOL, atol=DP_ORACLE_ATOL)
+            oracle_err = max(oracle_err, float((v - want).abs().max()))
+            require(ok, f"per-replica statistics {k} differ from the serial oracle's mean")
+    out["per_replica_oracle_max_abs"] = oracle_err
+    del state, init
+
+    # the fused conv1x1 sites with cross-replica statistics: #10 on each rank
+    state = new_state(seed, bn_axis=axis, conv1x1_fuse_min_cin=CONV_FUSE_MIN_CIN)
+    step = make_train_step(state.model, step_config(), axis=axis)
+    C.reset_launches()
+    losses = []
+    for _ in range(DP_CONV_STEPS):
+        state, metrics = step(state, local)
+        losses.append(float(metrics["contrastive_loss"]))
+    launches = {fn.__name__: fn.launches for fn in C.KERNELS}
+    out["conv1x1"] = {"losses": losses, "launches": launches,
+                      "replicated": _replicated_bits(axis, state.model)}
+    require(all(math.isfinite(v) for v in losses), f"rank {rank} conv1x1 losses {losses}")
+    require(launches == {"conv1x1_stats": CONV_PER_STEP * DP_CONV_STEPS,
+                         "conv1x1_bn_relu_stats": 0}, f"rank {rank}: #10 launches {launches}")
+    require(out["conv1x1"]["replicated"], f"rank {rank}: conv1x1 states differ")
+    del state, step
+    dist.destroy_process_group()
+
+    # NCCL and two ranks on one device
+    torch.cuda.synchronize()
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port + 1}", rank=rank,
+                                world_size=DP_WORLD, timeout=datetime.timedelta(seconds=30))
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        out["nccl_two_ranks_one_card"] = f"not refused (sum {float(t)})"
+    except RuntimeError as exc:
+        out["nccl_two_ranks_one_card"] = f"{type(exc).__name__}: {exc}"[:400]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
+def _dp_world1(seed: int, port: int) -> dict:
+    """The NCCL group at world size 1: the sharded step with the real axis
+    against the single-device step, bit for bit."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from simhand_tpu_torch.parallel import create_mesh, shard_batch
+    from simhand_tpu_torch.train import make_train_step
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=DP_DEADLINE_S),
+                            device_id=torch.device("cuda", 0))
+    axis = create_mesh()
+    agreed = [axis.any_rank(False), axis.any_rank(True)]
+    require(agreed == [False, True], f"NCCL world 1: host flags agreed as {agreed}")
+    cfg, batch = step_config(), synthetic_batch(seed)
+    states = {"single": new_state(seed), "sharded": new_state(seed)}
+    steps = {"single": make_train_step(states["single"].model, cfg),
+             "sharded": make_train_step(states["sharded"].model, cfg, axis=axis)}
+    batches = {"single": batch, "sharded": shard_batch(axis, batch)}
+    losses = {k: [] for k in states}
+    for _ in range(DP_W1_STEPS):
+        for k in states:
+            states[k], metrics = steps[k](states[k], batches[k])
+            losses[k].append(float(metrics["contrastive_loss"]))
+    sd = {k: s.model.state_dict() for k, s in states.items()}
+    differ = [k for k in sd["single"] if not torch.equal(sd["single"][k], sd["sharded"][k])]
+    dist.destroy_process_group()
+    require(losses["single"] == losses["sharded"],
+            f"NCCL world 1: losses {losses['sharded']} against {losses['single']}")
+    require(not differ, f"NCCL world 1: {len(differ)} tensors differ, e.g. {differ[:3]}")
+    return {"losses": losses["sharded"], "tensors_equal": len(sd["single"]),
+            "host_flags": agreed}
+
+
+def dp_child(role: str, seed: int, rank: int, port: int, out: str, proj_file: str) -> int:
+    """The entry of phase 20's processes: writes its result as JSON to out."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    result = _dp_world1(seed, port) if role == "world1" else _dp_rank(seed, rank, port,
+                                                                        proj_file)
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_children(args_list: list, deadline: float) -> list:
+    """Starts one process of this script for each argument list, all
+    together; waits for all within the shared deadline, kills any left, and
+    fails unless every one exits 0. Returns their outputs."""
+    procs = [subprocess.Popen([sys.executable, __file__, *a], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for a in args_list]
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1))[0])
+            except subprocess.TimeoutExpired:
+                logs.append("")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for a, p, log in zip(args_list, procs, logs):
+        if p.returncode != 0:
+            print(log[-6000:])
+        require(p.returncode == 0, f"phase 20 process {a} exited {p.returncode}")
+    return logs
+
+
+def data_parallel_phase(seed: int) -> tuple[dict, dict]:
+    """Phase 20: the encoder options here, then the NCCL world-1 process
+    and the DP_WORLD gloo ranks. Returns the phase's record and the
+    sharded launches of each kernel a rank a step."""
+    import pathlib
+
+    import torch
+
+    t0 = time.perf_counter()
+    batch = synthetic_batch(seed)
+    perf = encoder_options_path(seed, batch)
+    state = new_state(seed)
+    state.model.train()
+    with torch.no_grad():
+        proj = state.model(torch.cat([batch["transformed_image1"],
+                                      batch["transformed_image2"]]))[1]
+    work = pathlib.Path(__file__).resolve().parent / "build" / f"data_parallel_{seed}"
+    work.mkdir(parents=True, exist_ok=True)
+    torch.save(proj.cpu(), work / "proj.pt")
+    del state, batch, proj
+    torch.cuda.empty_cache()
+    deadline = time.monotonic() + DP_DEADLINE_S
+
+    common = ["--seed", str(seed), "--dp-proj", str(work / "proj.pt")]
+    t1 = time.perf_counter()
+    _run_children([["--dp-role", "world1", "--dp-port", str(_free_port()),
+                    "--dp-out", str(work / "world1.json"), *common]], deadline)
+    world1 = json.loads((work / "world1.json").read_text())
+    print(f"NCCL world 1: sharded step == single-device step bit for bit over "
+          f"{DP_W1_STEPS} steps (losses {world1['losses']}, {world1['tensors_equal']} "
+          f"tensors); host flags over gloo {world1['host_flags']}; "
+          f"{time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    port = _free_port()
+    logs = _run_children([["--dp-role", "rank", "--dp-rank", str(r), "--dp-port", str(port),
+                           "--dp-out", str(work / f"rank{r}.json"), *common]
+                          for r in range(DP_WORLD)], deadline)
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
+    ranks_s = time.perf_counter() - t1
+    r0 = ranks[0]
+    print(f"two ranks on one card: NCCL {r0['nccl_two_ranks_one_card']!r}; gloo took the "
+          f"CUDA tensors of all_gather, all_reduce and broadcast")
+    for r in ranks:
+        for name, e in r["forward"].items():
+            print(f"rank {r['rank']} {name} forward against the oracle's: embeddings, "
+                  f"cross-replica BN {e['emb']:.3e} of the largest ({e['emb_norm']:.3e} in norm), "
+                  f"per-replica BN {e['emb_per_replica']:.3e} ({e['emb_per_replica_norm']:.3e}); "
+                  f"loss {e['loss']:.7f}, rel {e['loss_rel']:.2e} to the oracle's, "
+                  f"{e['single_rel']:.2e} to one process's")
+    for r in ranks:
+        for key, v in r["loss_layer"].items():
+            print(f"rank {r['rank']} loss layer {key}: loss {v['loss']:.7f} (one device "
+                  f"{v['single_loss']:.7f}, rel {v['rel']:.2e}); dz rel {v['dz_rel']:.2e}; "
+                  f"launches {v['launches']}")
+    for route in ("kernel", "dense"):
+        s = r0[f"step_{route}"]
+        print(f"two-rank step ({route} route, cross-replica BN): losses {s['losses']}; step 0 "
+              f"rel {s['loss0_rel']:.2e} to one process's {s['single_loss0']:.7f}, rel "
+              f"{s['oracle_rel']:.2e} to the oracle's {s['oracle_loss0']:.7f}; replicated "
+              f"{[r[f'step_{route}']['replicated'] for r in ranks]}")
+    sk = r0["step_kernel"]
+    print(f"two processes sharing one card (no scaling claim): {sk['step_ms']:.2f} ms/step "
+          f"(B = {PAIRS} pairs, {PAIRS // DP_WORLD} a rank); the gradient pmean "
+          f"({sk['grad_mb']:.1f} MB) {sk['grad_pmean_ms']:.2f} ms, z all_gather "
+          f"{sk['z_gather_ms']:.3f} ms over gloo")
+    print(f"per-replica statistics vs the serial oracle: max abs diff "
+          f"{r0['per_replica_oracle_max_abs']:.3e}; conv1x1 steps {r0['conv1x1']}")
+    phase_s = time.perf_counter() - t0
+    print(f"phase 20 (encoder options, data-parallel step): {phase_s:.1f} s, of it the two "
+          f"ranks {ranks_s:.1f} s")
+    launches = {name: sum(v["launches"].get(name, 0) for v in r0["loss_layer"].values())
+                for name in ("ntxent_denominator", "weighted_ntxent_denominator",
+                             "ntxent_grad", "weighted_grad_rows")}
+    launches["conv1x1_stats"] = r0["conv1x1"]["launches"]["conv1x1_stats"] // DP_CONV_STEPS
+    perf.update(world1=world1, ranks=ranks, phase_s=phase_s, ranks_s=ranks_s,
+                rank_logs_tail=[log[-2000:] for log in logs])
+    return perf, launches
+
+
 def processes_below(pid: int) -> dict[int, str]:
     """Every process below ``pid`` (children, theirs, ...) by pid, with its
     command, from the parent links in /proc."""
@@ -3413,6 +4015,12 @@ def plain_family(state, batch) -> tuple[dict, dict]:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    # phase 20's processes: this script started again as one of them
+    parser.add_argument("--dp-role", choices=("world1", "rank"), help=argparse.SUPPRESS)
+    parser.add_argument("--dp-rank", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--dp-port", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--dp-out", help=argparse.SUPPRESS)
+    parser.add_argument("--dp-proj", help=argparse.SUPPRESS)
     args = parser.parse_args()
     try:
         import torch
@@ -3427,6 +4035,10 @@ def main() -> int:
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
         return 1
+
+    if args.dp_role:
+        return dp_child(args.dp_role, args.seed, args.dp_rank, args.dp_port, args.dp_out,
+                        args.dp_proj)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3465,6 +4077,7 @@ def main() -> int:
     server_perf = server_phase(kernel_walk)
     del kernel_walk
     entry_serving_perf = serving_entry_points(args.seed)
+    dp_perf, dp_launches = data_parallel_phase(args.seed)
     from simhand_tpu_torch.data.grain_loader import stop_worker_server
 
     t19 = time.perf_counter()
@@ -3485,6 +4098,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES["ntxent"],
             "replaces": REPLACES[name], "launches": path_launches[name],
             **shapes[MAIN_SHAPE], "library_ms": None, "at": shapes,
+            "sharded_launches_a_rank_a_step": dp_launches[name],
             **({"entry_point_launches": entry_launches[name]} if name in entry_launches
                and name.startswith("weighted") else {}),
         })
@@ -3520,6 +4134,8 @@ def main() -> int:
                                         "plain_ms", "bound_ms", "bound_by", "matmul_ms",
                                         "ratio_to_matmul")},
             "library_ms": None, "at": shapes,
+            **({"sharded_launches_a_rank_a_step": dp_launches[name]}
+               if name in dp_launches else {}),
         })
     main_row = conv_bias_report["conv_bias_act"][CONV_BIAS_MAIN_SHAPE]
     kernels.append({
@@ -3553,6 +4169,7 @@ def main() -> int:
                       "serving": serve_perf, "server": server_perf,
                       "serving_entry_points": entry_serving_perf,
                       "mining": mining_perf, "loader": loader_perf,
+                      "data_parallel": dp_perf,
                       "phase_19_s": phase_19_s, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,7 +9,8 @@ kept here as its own copy).
   module names:  layer{s}_{b} -> layer{s}.{b};
                  downsample_{conv,bn} -> downsample.{0,1}
 
-The encoder keeps torchvision's keys under ``encoder.``; the head's are
+The encoder keeps torchvision's keys under ``encoder.``, the
+space-to-depth stem's as ``encoder.conv1_s2d``; the head's are
 ``projection_head.fc1``, ``.bn1`` and ``.fc2``. The result loads with
 ``strict=True``. ``detnet_from_flax_variables`` does the same for the JAX
 ``DetNet`` (the mapping of ``simhand_tpu/finetune/torch_port_detnet.py``),

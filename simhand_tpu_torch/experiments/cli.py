@@ -93,7 +93,8 @@ def get_general_args(
     parser.add_argument("--fsdp", action="store_true", default=False,
                         help="shard params + optimizer state over the "
                              "devices (does nothing on one device, as in "
-                             "the JAX package)")
+                             "the JAX package; not ported yet for "
+                             "WORLD_SIZE > 1, where it raises)")
     parser.add_argument("--cache_dir", type=str, default=None,
                         help="packed-crop cache dir (built on first use); "
                              "removes per-step JPEG decode from the input path")

@@ -14,6 +14,19 @@ CPU (``--device cpu``). The route users take for speed, ``--cache_dir`` with
 ``--device_augment``, needs neither ``cv2`` nor any other optional package:
 each is imported inside the function that uses it.
 
+On several GPUs it runs one process a GPU, data-parallel, as the JAX
+package runs on a mesh of more than one device; launch it as torchrun
+does, with ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT`` set (``torchrun --nproc_per_node 8 -m
+simhand_tpu_torch.experiments.main ...``). With ``WORLD_SIZE > 1`` it
+joins the process group (NCCL on the card, gloo on the CPU), replicates
+rank 0's initial state, and each rank reads the same global batch stream
+(``-batch_size`` is the global batch) and keeps its rows. The loss is the
+global-batch loss, the gradients and BatchNorm statistics are averaged
+over the ranks (BatchNorm itself is per-replica, as JAX's main builds
+it), validation is sharded the same way, and only rank 0 logs, writes
+checkpoints and exports. One process runs exactly as before.
+
 Where it departs from the JAX package:
   * with ``-log_interval epoch`` (the default) the per-step losses stay
     tensors on the device and are read once at the epoch's end, as JAX
@@ -27,7 +40,17 @@ Where it departs from the JAX package:
   * ``--profile_dir`` records ``torch.profiler`` and writes a Chrome trace
     there, in place of ``jax.profiler``;
   * ``--fsdp`` on one device does nothing, as JAX's does there (it needs a
-    mesh);
+    mesh); with ``WORLD_SIZE > 1`` it raises: the sharded parameter and
+    optimizer layout is not ported yet;
+  * with several ranks, the preemption flag is agreed over the ranks at
+    each step (one all-reduce of a host integer over gloo, beside NCCL),
+    so every rank saves or stops at the same step and none waits for its
+    card there;
+  * with several ranks, every rank reads (and, without
+    ``--device_augment``, augments on the host) the whole global batch and
+    keeps 1/W of it: W times the host feed work of JAX's main, which loads
+    each batch once. Selecting this rank's indices before decoding is left
+    to a later change;
   * without a card and without ``--device cpu`` (or ``device="cpu"``),
     ``main`` raises: it never moves to the CPU on its own;
   * the SIGTERM handler is put back as it was when ``main`` returns.
@@ -47,11 +70,17 @@ from simhand_tpu_torch import constants
 from simhand_tpu_torch.data.augment import prepare_views, seeded_generator
 from simhand_tpu_torch.data.augment_cv2 import AugmentFlags, AugmentParams
 from simhand_tpu_torch.data.pipeline import PretrainDataset, batch_iterator
-from simhand_tpu_torch.data.prefetch import device_prefetch
 from simhand_tpu_torch.device import resolve_device
 from simhand_tpu_torch.experiments import config as cfg_mod
 from simhand_tpu_torch.experiments.cli import get_general_args
 from simhand_tpu_torch.models import ContrastiveConfig, ContrastiveModel
+from simhand_tpu_torch.parallel import (
+    create_mesh,
+    device_prefetch,
+    init_distributed,
+    replicate,
+    shard_batch,
+)
 from simhand_tpu_torch.train import (
     OptimizerConfig,
     create_train_state,
@@ -122,7 +151,9 @@ def _mean(losses: list) -> float:
 
 def main(argv=None, device=None):
     """Parses ``argv`` (``sys.argv[1:]`` when None) and pre-trains; returns
-    the train state. ``device`` overrides ``--device``."""
+    the train state. ``device`` overrides ``--device``. With
+    ``WORLD_SIZE > 1`` in the environment, this process is one rank of a
+    data-parallel run."""
     args = get_general_args(argv)
     if getattr(args, "heatmap", False):
         # as the reference, whose get_model raises for every experiment type
@@ -132,9 +163,27 @@ def main(argv=None, device=None):
             "(matches the reference)"
         )
     dev = resolve_device(device or args.device)
+    if int(os.environ.get("WORLD_SIZE", 1)) <= 1:
+        return _run(args, dev, None)
+    if getattr(args, "fsdp", False):
+        raise NotImplementedError(
+            "--fsdp with WORLD_SIZE > 1: the sharded parameter and optimizer layout "
+            "(parallel/fsdp.py) is not ported yet; it comes with the next slice of the "
+            "port. Drop --fsdp for data parallelism with replicated state")
+    import torch.distributed as dist
 
+    dev = init_distributed(dev)
+    try:
+        return _run(args, dev, create_mesh())
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, dev: torch.device, axis):
+    """The run of ``main`` on ``dev``, one rank of ``axis`` (or alone)."""
+    is_main = axis is None or axis.index == 0
     logging.basicConfig(
-        level=logging.DEBUG if args.debug else logging.INFO,
+        level=(logging.DEBUG if args.debug else logging.INFO) if is_main else logging.WARNING,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
 
@@ -222,6 +271,8 @@ def main(argv=None, device=None):
     side = int(params.resize_shape[0])
     state = create_train_state(model, opt_cfg, seed, input_shape=(2, side, side, 3),
                                device=dev)
+    if axis is not None:
+        state = replicate(axis, state)
     logger.info(
         "model rn%s, base lr %.3e, %d iters/epoch",
         model_param["resnet_size"], opt_cfg.base_lr, iters_per_epoch,
@@ -242,10 +293,10 @@ def main(argv=None, device=None):
     )
 
     augment = (flags, params, side) if args.device_augment else None
-    step_fn = make_train_step(model, ccfg, augment=augment)
+    step_fn = make_train_step(model, ccfg, augment=augment, axis=axis)
     # under --device_augment the evaluation takes raw batches and augments
     # them with the fixed EVAL_AUGMENT_SEED, so validation never goes blind
-    eval_fn = make_eval_step(model, ccfg, augment=augment)
+    eval_fn = make_eval_step(model, ccfg, augment=augment, axis=axis)
 
     # the held-out slice: Hand100M has no labelled val set, so the tail
     # (1 - train_ratio) of the index space serves as one
@@ -259,10 +310,15 @@ def main(argv=None, device=None):
     )
     metric_logger = MetricLogger(
         exp_name, tb_dir=constants.TENSORBOARD_LOGS, tags=list(args.tag)
-    )
-    if args.meta_file:
+    ) if is_main else None
+
+    def log_metrics(metrics: dict, step: int) -> None:
+        if metric_logger is not None:
+            metric_logger.log_metrics(metrics, step)
+
+    if args.meta_file and is_main:
         register_experiment(args.meta_file, exp_name, args.experiment_key)
-    if args.debug:
+    if args.debug and is_main:
         setup_debug_logging(
             os.path.join(constants.SAVED_META_INFO_PATH, "debug"), exp_name
         )
@@ -308,7 +364,7 @@ def main(argv=None, device=None):
         losses = []
         host_iter = batch_iterator(dataset, batch_size, shuffle=False,
                                    raw=args.device_augment, num_threads=num_workers)
-        feed = device_prefetch(host_iter, dev)
+        feed = device_prefetch(host_iter, axis, dev)
         try:
             for i, batch in enumerate(feed):
                 losses.append(eval_fn(state, batch)["contrastive_loss"])
@@ -318,12 +374,13 @@ def main(argv=None, device=None):
             feed.close()
             host_iter.close()
         logger.info("eval contrastive_loss: %.5f", _mean(losses))
-        metric_logger.close()
+        if metric_logger is not None:
+            metric_logger.close()
         manager.close()
         return state
 
     profiler = None
-    if args.profile_dir:
+    if args.profile_dir and is_main:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if dev.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -361,12 +418,13 @@ def main(argv=None, device=None):
                 num_threads=num_workers, raw=args.device_augment,
                 sample_weights=weights,
             )
-            prefetch_iter = device_prefetch(host_iter, dev)
+            prefetch_iter = device_prefetch(host_iter, axis, dev)
             try:
                 for batch_idx, batch in enumerate(prefetch_iter):
                     state, metrics = step_fn(state, batch)
                     global_step += 1
-                    if batch_idx == 4 and epoch % 5 == 0 and metric_logger.takes_figures:
+                    if (batch_idx == 4 and epoch % 5 == 0 and metric_logger is not None
+                            and metric_logger.takes_figures):
                         # the sample-pair figure every few epochs; under
                         # --device_augment the batch is raw, so one sample's
                         # views are made with the evaluation's fixed seed
@@ -389,12 +447,10 @@ def main(argv=None, device=None):
 
                         plt.close(fig)
                     if args.log_interval == "step":
-                        metric_logger.log_metrics(
-                            {k: float(v) for k, v in metrics.items()}, global_step,
-                        )
+                        log_metrics({k: float(v) for k, v in metrics.items()}, global_step)
                     else:
                         epoch_losses.append(metrics["contrastive_loss"])
-                    if args.vis and args.vis_save_dir and global_step % 100 == 1:
+                    if args.vis and args.vis_save_dir and global_step % 100 == 1 and is_main:
                         # the simhand_vis contract: an npy of the pair images
                         # (and joints) every 100 iterations
                         os.makedirs(args.vis_save_dir, exist_ok=True)
@@ -414,11 +470,15 @@ def main(argv=None, device=None):
                             and global_step >= args.fault_inject_preempt_step):
                         # the preemption drill: the SIGTERM path, at a set step
                         preempted["flag"] = True
+                    if axis is not None:
+                        # every rank stops at the same step
+                        preempted["flag"] = axis.any_rank(preempted["flag"])
                     if preempted["flag"]:
-                        manager.save(
-                            global_step, state,
-                            {"contrastive_loss": float(metrics["contrastive_loss"])},
-                        )
+                        if is_main:
+                            manager.save(
+                                global_step, state,
+                                {"contrastive_loss": float(metrics["contrastive_loss"])},
+                            )
                         manager.wait()
                         logger.warning("checkpoint saved at step %d; exiting", global_step)
                         stop = True
@@ -436,7 +496,7 @@ def main(argv=None, device=None):
                 "epoch %d: contrastive_loss %.5f (%.1fs, %.1f img/s)",
                 epoch, mean_loss, dt, batch_size * max(len(epoch_losses), 1) / dt,
             )
-            metric_logger.log_metrics({"contrastive_loss_epoch": mean_loss}, global_step)
+            log_metrics({"contrastive_loss_epoch": mean_loss}, global_step)
             if n_val > 0:
                 val_losses = []
                 val_order = np.arange(num_samples - n_val, num_samples)
@@ -464,12 +524,13 @@ def main(argv=None, device=None):
                         val_batch = {
                             k: np.stack([s[k] for s in samples]) for k in samples[0]
                         }
+                    if axis is not None:
+                        val_batch = shard_batch(axis, val_batch)
                     val_losses.append(
                         eval_fn(state, _to_device(val_batch, dev))["contrastive_loss"])
-                metric_logger.log_metrics(
-                    {"contrastive_loss_val": _mean(val_losses)}, global_step
-                )
-            if (epoch + 1) % max(int(args.save_period), 1) == 0 or epoch == epochs - 1:
+                log_metrics({"contrastive_loss_val": _mean(val_losses)}, global_step)
+            if is_main and ((epoch + 1) % max(int(args.save_period), 1) == 0
+                            or epoch == epochs - 1):
                 manager.save(global_step, state, {"contrastive_loss": mean_loss})
     finally:
         if previous_handler is not None:
@@ -481,10 +542,11 @@ def main(argv=None, device=None):
         os.makedirs(args.profile_dir, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
 
-    if args.export_torch:
+    if args.export_torch and is_main:
         export_torch_encoder(state, args.export_torch)
         logger.info("exported torch encoder to %s", args.export_torch)
-    metric_logger.close()
+    if metric_logger is not None:
+        metric_logger.close()
     manager.close()
     return state
 

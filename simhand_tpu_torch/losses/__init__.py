@@ -5,6 +5,8 @@ from simhand_tpu_torch.losses.contrastive import (
     weighted_nt_xent,
 )
 from simhand_tpu_torch.losses.ntxent_kernels import (
+    make_sharded_nt_xent_kernel,
+    make_sharded_weighted_nt_xent_kernel,
     nt_xent_kernel,
     weighted_nt_xent_kernel,
 )
@@ -18,6 +20,8 @@ from simhand_tpu_torch.losses.weights import (
 __all__ = [
     "apply_pca",
     "linear_weights",
+    "make_sharded_nt_xent_kernel",
+    "make_sharded_weighted_nt_xent_kernel",
     "neg_weighted_nt_xent",
     "nonlinear_weights",
     "nt_xent",

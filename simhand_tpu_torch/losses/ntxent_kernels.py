@@ -11,7 +11,15 @@ columns, with ``row_ids`` the global ids that mask the self pair.
 ``nt_xent_kernel`` and ``weighted_nt_xent_kernel`` are the single-device
 losses with a kernel forward and a kernel backward (the custom VJPs of
 ``pallas_ntxent.py:267-425``); neither ever holds a (2B, 2B) plane on the
-card.
+card. ``make_sharded_nt_xent_kernel`` and
+``make_sharded_weighted_nt_xent_kernel`` are their global-batch forms over
+a data axis (``pallas_ntxent.py:432-592``): each rank streams its rows
+against the all-gathered columns. Their backward returns the global
+gradient of the local rows (the similarity matrix is symmetric, so the row
+pass with the global 1/neg holds both contributions), so a rank's gradient
+is the global one, not W times it as the dense losses' is: JAX's
+behaviour, kept. Every collective runs in the forward, which saves what the
+backward needs; the backward runs none.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import torch
 
 from simhand_tpu_torch import native
 from simhand_tpu_torch.device import on_cpu
+from simhand_tpu_torch.losses.weights import _pair_distance, pairwise_minmax
 
 D = 128          # projection width the kernels are built for
 _GBM = 64        # rows of a CTA of the kernels in csrc/ntxent.cu
@@ -348,3 +357,97 @@ def weighted_nt_xent_kernel(z1, z2, joints, pos_weights, minmax,
     """
     return _WeightedNTXentKernelLoss.apply(z1, z2, joints, pos_weights, minmax,
                                            temperature)
+
+
+# --------------------------------------------------------------------------
+# the sharded losses: rows local, columns all-gathered
+# --------------------------------------------------------------------------
+
+def _sharded_rows(axis, b: int, device) -> torch.Tensor:
+    """Global ids of this rank's [z1; z2] rows."""
+    local = torch.arange(b, dtype=torch.int32, device=device) + axis.index * b
+    return torch.cat([local, local + b * axis.size])
+
+
+def _gathered(axis, a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """[a_all; c_all]: the ranks' a, then the ranks' c (the column order)."""
+    return torch.cat([axis.gather_raw(a.contiguous()), axis.gather_raw(c.contiguous())])
+
+
+def _inv_cols(axis, neg: torch.Tensor, b: int):
+    """(1/neg of the local rows, 1/neg of the global columns)."""
+    inv = 1.0 / neg
+    return inv, _gathered(axis, inv[:b], inv[b:])
+
+
+class _ShardedNTXentKernelLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z1, z2, axis, temperature):
+        b = z1.shape[0]
+        z = torch.cat([z1, z2], dim=0).contiguous()
+        cols, rows = _gathered(axis, z1, z2), _sharded_rows(axis, b, z.device)
+        neg = ntxent_denominator(z, cols, rows, temperature)
+        pos = torch.sum(z1 * z2, dim=-1) / temperature
+        loss = axis.reduce_raw(torch.mean(torch.log(neg) - torch.cat([pos, pos])), "sum")
+        inv, inv_cols = _inv_cols(axis, neg, b)
+        ctx.save_for_backward(z, cols, rows, inv, inv_cols)
+        ctx.temperature, ctx.n_global = temperature, cols.shape[0]
+        return loss / axis.size
+
+    @staticmethod
+    def backward(ctx, g):
+        z, cols, rows, inv, inv_cols = ctx.saved_tensors
+        b, t = z.shape[0] // 2, ctx.temperature
+        denom_grad = ntxent_grad(z, cols, inv, inv_cols, rows, t)
+        partner = torch.cat([z[b:], z[:b]], dim=0)
+        dz = (denom_grad - 2.0 * partner) / (ctx.n_global * t) * g
+        return dz[:b], dz[b:], None, None
+
+
+class _ShardedWeightedNTXentKernelLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z1, z2, j1, j2, axis, temperature):
+        b = z1.shape[0]
+        z = torch.cat([z1, z2], dim=0).contiguous()
+        j = torch.cat([j1, j2], dim=0).reshape(2 * b, 42).contiguous()
+        cols, rows = _gathered(axis, z1, z2), _sharded_rows(axis, b, z.device)
+        j_cols = _gathered(axis, j1.reshape(b, 42), j2.reshape(b, 42))
+        d_min, d_max = pairwise_minmax(j.reshape(-1, 21, 2), "mpjpe", axis=axis)
+        neg = weighted_ntxent_denominator(z, cols, j, j_cols, rows, d_max, d_min,
+                                          temperature)
+        pos_d = _pair_distance(j1, j2, "mpjpe")
+        p_min, p_max = axis.reduce_raw(pos_d.min(), "min"), axis.reduce_raw(pos_d.max(), "max")
+        pw = (p_max - pos_d) / (p_max - p_min)
+        pos = torch.sum(z1 * z2, dim=-1) * pw / temperature
+        loss = axis.reduce_raw(torch.mean(torch.log(neg) - torch.cat([pos, pos])), "sum")
+        inv, inv_cols = _inv_cols(axis, neg, b)
+        ctx.save_for_backward(z, cols, j, j_cols, rows, inv, inv_cols, pw, d_max, d_min)
+        ctx.temperature, ctx.n_global = temperature, cols.shape[0]
+        return loss / axis.size
+
+    @staticmethod
+    def backward(ctx, g):
+        z, cols, j, j_cols, rows, inv, inv_cols, pw, d_max, d_min = ctx.saved_tensors
+        b, t = z.shape[0] // 2, ctx.temperature
+        denom_grad = weighted_grad_rows(z, cols, j, j_cols, inv, inv_cols, rows, d_max,
+                                        d_min, t)
+        partner = torch.cat([z[b:], z[:b]], dim=0)
+        pw2 = torch.cat([pw, pw])[:, None]
+        dz = (denom_grad - 2.0 * pw2 * partner) / (ctx.n_global * t) * g
+        return dz[:b], dz[b:], None, None, None, None
+
+
+def make_sharded_nt_xent_kernel(axis, temperature: float = 0.5):
+    """(z1, z2) -> the global-batch NT-Xent over ``axis`` through kernels #1
+    and #3; z1, z2 are this rank's (B, 128) rows. The same value as
+    ``losses.contrastive.nt_xent(..., axis=axis)``."""
+    return lambda z1, z2: _ShardedNTXentKernelLoss.apply(z1, z2, axis, temperature)
+
+
+def make_sharded_weighted_nt_xent_kernel(axis, temperature: float = 0.5):
+    """(z1, z2, joints1, joints2) -> the global-batch simhand_w loss (linear
+    mpjpe pos_neg weights) over ``axis`` through kernels #2 and #4; joints
+    are this rank's (B, 21, 2) keypoints of each view. Gradients flow to z1
+    and z2 only."""
+    return lambda z1, z2, j1, j2: _ShardedWeightedNTXentKernelLoss.apply(
+        z1, z2, j1, j2, axis, temperature)

@@ -209,7 +209,8 @@ def mine_similar_hands(
     if mesh is not None:
         raise NotImplementedError(
             "sharded mining (a mesh, make_sharded_topk_all, the shard_db ring) is not "
-            "ported yet: it comes with the port's sharded slice; pass mesh=None")
+            "ported yet: it comes with the next slice of the port, after the data-parallel "
+            "pre-training step; pass mesh=None")
     if shard_db:
         raise ValueError("shard_db=True requires a mesh")
     dev = resolve_device(device)

@@ -37,7 +37,7 @@ import torch
 
 from simhand_tpu_torch import native
 from simhand_tpu_torch.device import on_cpu
-from simhand_tpu_torch.models.layers import BatchNorm2d
+from simhand_tpu_torch.models.layers import BatchNorm2d, update_running_stats
 
 _CTAS_PER_SM = 2       # the persistent grid of #5-#9
 _MIN_CTA_BYTES = 16384  # fewest bytes of a plane a CTA of that grid walks
@@ -412,8 +412,5 @@ class BNRelu(BatchNorm2d):
         else:
             y, mu, var = BNAddReluTrain.apply(x, residual, self.weight, self.bias,
                                               self.eps, self.impl)
-        with torch.no_grad():
-            m = self.flax_momentum
-            self.running_mean.mul_(m).add_(mu, alpha=1.0 - m)
-            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        update_running_stats(self, mu, var)
         return y

@@ -29,7 +29,7 @@ import torch
 
 from simhand_tpu_torch.device import on_cpu
 from simhand_tpu_torch.models import bn_epilogue as E
-from simhand_tpu_torch.models.layers import BatchNorm2d
+from simhand_tpu_torch.models.layers import BatchNorm2d, update_running_stats
 
 
 def bn_backward_reduces_plain(x2d, dy2d, mu, inv):
@@ -115,7 +115,12 @@ class FusedBatchNorm(BatchNorm2d):
     """
 
     def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5,
-                 stop_gradient_stats: bool = False, reduce_impl: str = "kernel"):
+                 stop_gradient_stats: bool = False, reduce_impl: str = "kernel", axis=None):
+        if axis is not None:
+            # as the reference asserts (fused_bn.py:114)
+            raise NotImplementedError(
+                "FusedBatchNorm is per-replica only: it has no cross-replica statistics; "
+                "use the exact BatchNorm (bn_fused=False) with a BatchNorm axis")
         super().__init__(c, momentum, eps)
         if reduce_impl not in ("kernel", "plain"):
             raise ValueError(f"reduce_impl must be 'kernel' or 'plain', got {reduce_impl!r}")
@@ -127,8 +132,5 @@ class FusedBatchNorm(BatchNorm2d):
             return E.bn_affine(x, self.running_mean, inv, self.weight, self.bias)
         y, mu, var = BNTrain.apply(x, self.weight, self.bias, self.eps,
                                    self.stop_gradient_stats, self.reduce_impl)
-        with torch.no_grad():
-            m = self.flax_momentum
-            self.running_mean.mul_(m).add_(mu, alpha=1.0 - m)
-            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        update_running_stats(self, mu, var)
         return y

@@ -8,13 +8,15 @@ negative ``k`` takes the whole batch and ``k = 0`` raises
 ``stop_gradient_stats`` keeps gradients out of the mean and variance
 (``--bn_variant stop_grad`` of the JAX CLI). Statistics are float32 with
 the variance clamped at 0; the statistics and the affine are folded into
-one per-channel multiply-add applied in the input's dtype.
+one per-channel multiply-add applied in the input's dtype. With an
+``axis`` (``parallel.mesh``) the subset's mean and mean square are
+pmean'd over the ranks before the variance is formed.
 """
 from __future__ import annotations
 
 import torch
 
-from simhand_tpu_torch.models.layers import BatchNorm2d
+from simhand_tpu_torch.models.layers import BatchNorm2d, update_running_stats
 
 
 class SubsampledBatchNorm(BatchNorm2d):
@@ -22,8 +24,8 @@ class SubsampledBatchNorm(BatchNorm2d):
     subset statistics and optionally stopped gradients through them."""
 
     def __init__(self, c: int, subsample: int = 4, stop_gradient_stats: bool = False,
-                 momentum: float = 0.9, eps: float = 1e-5):
-        super().__init__(c, momentum, eps)
+                 momentum: float = 0.9, eps: float = 1e-5, axis=None):
+        super().__init__(c, momentum, eps, axis)
         self.subsample, self.stop_gradient_stats = subsample, stop_gradient_stats
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -34,12 +36,11 @@ class SubsampledBatchNorm(BatchNorm2d):
             sub = x[:n_sub] if self.subsample > 1 else x
             sub32 = sub.float()
             dims = [d for d in range(x.dim()) if d != 1]
-            mean = sub32.mean(dims)
-            var = torch.clamp((sub32 * sub32).mean(dims) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.flax_momentum
-                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
-                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+            mean, mean2 = sub32.mean(dims), (sub32 * sub32).mean(dims)
+            if self.axis is not None:
+                mean, mean2 = self.axis.pmean(torch.stack([mean, mean2]))
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
+            update_running_stats(self, mean, var)
             if self.stop_gradient_stats:
                 mean, var = mean.detach(), var.detach()
         else:

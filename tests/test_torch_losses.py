@@ -62,7 +62,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "train", "evaluate")} | {"simhand_tpu_torch/models/heads.py",
                                  "simhand_tpu_torch/data/sources/freihand.py",
                                  "simhand_tpu_torch/experiments/evaluation.py",
-                                 "simhand_tpu_torch/experiments/downstream.py"} <= names
+                                 "simhand_tpu_torch/experiments/downstream.py",
+                                 "simhand_tpu_torch/parallel/__init__.py",
+                                 "simhand_tpu_torch/parallel/mesh.py"} <= names
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
 
