@@ -267,6 +267,36 @@
    step on each rank). Prints the two-rank step's ms/step, the gradient
    pmean's and the projections' all_gather's ms (two processes sharing one
    card: no scaling claim), and the phase's seconds.
+21. after 19, the rest of the sharded work, in processes of this script
+   under one deadline, killed past it: the NCCL group at world size 1,
+   where the FSDP step (``make_fsdp_train_step``) equals the single-device
+   step bit for bit over 2 steps (one rank shards nothing, and has no
+   axis); then two ranks on the one card over gloo, each in turn: FSDP
+   (ResNet-50, 128x128, bf16, B = 256 pairs, simhand_w, use_pallas: #2/#4
+   once a rank a step on 256-row shards; 3 steps, the step-0 loss within
+   rel 1e-3 of one process's step on the global batch, each rank holding
+   under 0.55 of the replicated state's bytes, 3 timed steps, the gather
+   and the reduce-scatter of the split leaves alone; one step with
+   ``conv1x1_fuse_min_cin=512``, #10 15 times; float32 (TF32 off) against
+   one process's step, each beside one process against itself with its
+   pairs reversed: losses within rel 1e-5; one step, the Adam moment mu
+   (0.1 x the gradient) within 0.25 of its norm; 2 steps with LARS
+   unclipped, mu and nu within FSDP_F32_LARS_RTOL of their norms, which a
+   control run (the split leaves' gradient norms of the pieces alone) must
+   exceed); the data-parallel detnet step
+   (ResNet-50 DetNet, 128x128, bf16, 128 images, fused_pallas: #9 53 times
+   a rank a step, each launch's sums within rel 1e-5 of its plain
+   version; 3 steps and 3 timed; one float32 step against the per-replica
+   oracle in one process, each rank's rows through the model alone, the
+   predictions concatenated, det_loss on the global batch: the parts
+   within rel 1e-5, the pmean'd gradient within 2e-3 in norm and each
+   tensor above 1e-3 of the largest norm within 1e-2); sharded mining at
+   phase 19's cell, the replicated database (== phase 19's single-device
+   result bit for bit) and the ring (the distances bit for bit, its first
+   256 queries on each rank == the ring's block order on the CPU; the
+   4,096-hand tie corpus's ring on the card == the same ring on the CPU),
+   hands/s of each. Prints what gloo staged through the host and the
+   phase's seconds.
 
 Any failure ends the run with a non-zero exit code. The last line of the
 output is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -794,17 +824,18 @@ def step_config(**kw):
                                        image_side=float(SIDE), use_pallas=True), **kw})
 
 
-def new_state(seed: int, dtype=None, **model_kw):
+def new_state(seed: int, dtype=None, opt: dict | None = None, **model_kw):
     """A ResNet-50 ContrastiveModel computing in dtype (bf16 by default; with
-    the encoder options model_kw) and its train state, initialised from
-    seed on the card."""
+    the encoder options model_kw) and its train state (the optimizer's
+    settings overridden by opt), initialised from seed on the card."""
     import torch
 
     from simhand_tpu_torch.models import ContrastiveModel
     from simhand_tpu_torch.train import OptimizerConfig, create_train_state
 
     model = ContrastiveModel(RESNET, dtype=dtype or torch.bfloat16, **model_kw)
-    opt_cfg = OptimizerConfig(train_iters_per_epoch=1000, epochs=100, warmup_epochs=10)
+    opt_cfg = OptimizerConfig(**{**dict(train_iters_per_epoch=1000, epochs=100,
+                                        warmup_epochs=10), **(opt or {})})
     return create_train_state(model, opt_cfg, seed, input_shape=(2, SIDE, SIDE, 3),
                               device="cuda")
 
@@ -3180,6 +3211,12 @@ MINE_FUSED_OPS, MINE_ROUTE_BYTES = 7, 120
 LOADER_IMAGES, LOADER_BATCH, LOADER_WORKERS = 2048, 256, (0, 1, 2, 4, 8)
 
 
+def _mining_dir(seed: int):
+    from simhand_tpu_torch import native
+
+    return native.BUILD_DIR / f"mining_{seed}"
+
+
 def same_bits(a, b) -> bool:
     import numpy as np
 
@@ -3222,6 +3259,8 @@ def mining_path(seed: int) -> dict:
             "a hand without a valid positive, or a distance not finite")
     require(bool((vids[i[:, 0]] != vids).all()), "a pair from the same video")
     require(bool((i[:, 0] != np.arange(MINE_N)).all()), "a hand paired with itself")
+    _mining_dir(seed).mkdir(parents=True, exist_ok=True)
+    np.savez(_mining_dir(seed) / "single.npz", d=d, i=i)    # phase 21's reference
     t = torch.from_numpy
     q = MINE_CPU_QUERIES
     t0 = time.perf_counter()
@@ -3280,8 +3319,7 @@ def mining_path(seed: int) -> dict:
           f"{ties} equal neighbours in the top {TIE_K}")
 
     # the CLI on an unpaired JSON of nested <video>/frame_x.jpg names
-    out_dir = native.BUILD_DIR / f"mining_{seed}"
-    out_dir.mkdir(parents=True, exist_ok=True)
+    out_dir = _mining_dir(seed)
     n = MINE_CLI_N
     images = [{"id": j, "file_name": f"frames/video{int(vids[j]):04d}/frame_{j:06d}.jpg",
                "width": CROP, "height": CROP} for j in range(n)]
@@ -3811,14 +3849,17 @@ def _dp_world1(seed: int, port: int) -> dict:
 
 
 def dp_child(role: str, seed: int, rank: int, port: int, out: str, proj_file: str) -> int:
-    """The entry of phase 20's processes: writes its result as JSON to out."""
+    """The entry of phase 20's and phase 21's processes: writes its result
+    as JSON to out."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
-    result = _dp_world1(seed, port) if role == "world1" else _dp_rank(seed, rank, port,
-                                                                        proj_file)
+    result = {"world1": lambda: _dp_world1(seed, port),
+              "rank": lambda: _dp_rank(seed, rank, port, proj_file),
+              "sharded_world1": lambda: _sharded_world1(seed, port),
+              "sharded_rank": lambda: _sharded_rank(seed, rank, port)}[role]()
     with open(out, "w") as f:
         json.dump(result, f)
     return 0
@@ -3853,7 +3894,7 @@ def _run_children(args_list: list, deadline: float) -> list:
     for a, p, log in zip(args_list, procs, logs):
         if p.returncode != 0:
             print(log[-6000:])
-        require(p.returncode == 0, f"phase 20 process {a} exited {p.returncode}")
+        require(p.returncode == 0, f"process {a} exited {p.returncode}")
     return logs
 
 
@@ -3936,6 +3977,570 @@ def data_parallel_phase(seed: int) -> tuple[dict, dict]:
     return perf, launches
 
 
+# phase 21, the rest of the sharded work, after phase 19: this script
+# started again as processes of their own. The NCCL group at world size 1
+# (the FSDP step against the single-device step, SH_W1_STEPS steps, bit for
+# bit), then SH_WORLD ranks on the one card over gloo, each running in turn:
+# FSDP (ResNet-50, SIDE, bf16, B = PAIRS pairs, simhand_w on the kernel
+# route: #2/#4 on row shards; FSDP_STEPS steps against one process's step,
+# the bytes each rank holds, FSDP_TIMED timed steps, the gather and the
+# reduce-scatter alone; one step with conv1x1_fuse_min_cin: #10 at the
+# synced sites; FSDP_F32_STEPS float32 steps against one process's), the
+# data-parallel detnet step (ResNet-50 DetNet, 128x128, bf16, DET_BATCH
+# images, fused_pallas: #9 on each rank, each launch held against its plain
+# version; DET_STEPS steps and DET_TIMED timed; one float32 step against the
+# per-replica oracle) and sharded mining at phase 19's cell (the replicated
+# database and the ring). Every child shares SH_DEADLINE_S.
+SH_WORLD, SH_W1_STEPS, SH_DEADLINE_S = 2, 2, 420
+FSDP_STEPS, FSDP_TIMED = 3, 3
+# the bf16 FSDP step-0 loss against one process's step on the global batch
+# (its BatchNorms, the head's too, over every row, as the FSDP step's are):
+# phase 20's reason for DP_STEP_LOSS_RTOL, less the per-replica head: the
+# variance as E[x^2] - mu^2 from the ranks' sums where cuDNN takes it in one
+# pass, carried on by 54 bf16 BatchNorm outputs (phase 20 measured 4.91e-4
+# for that alone)
+FSDP_LOSS_RTOL = 1e-3
+# float32 (TF32 off), FSDP against one process on the global batch, each
+# loss within FSDP_F32_LOSS_RTOL (phase 20's float32 loss against its
+# oracle, 3.1e-7; measured 3.1e-7), in two optimizer settings; rounding at
+# this random init moves the gradient by percents, so one process against
+# itself with its pairs reversed (the same function summed in another
+# order) is printed beside each check as its floor. (a) The smoke's own
+# (lr 0 at step 0), one step: Adam's mu is 0.1 x the gradient, held
+# relative to its norm over all tensors but projection_head.fc1.bias (0 up
+# to rounding) at FSDP_F32_MU_RTOL, half the 0.5 by which a scale fault of
+# the reduce-scatter is off at two ranks (measured 2.45e-2 on an H100; the
+# first limit tried, 1e-2, failed there). Its LARS trust ratio is clipped
+# to 1 on every leaf (lr 3.2e-7 at step 1), so LARS's norms go unread
+# there. (b) LARS unclipped (lars_clip=False: every leaf's gradient scaled
+# by eta |p| / (|g| + wd |p|) from step 0), FSDP_F32_STEPS steps: mu and nu
+# after the last step, each relative to its norm over the same tensors,
+# held at FSDP_F32_LARS_RTOL, between the floor and the control: the same
+# FSDP run with the gradient norm of each split leaf taken on its piece
+# alone (a psum missing on one side of the trust ratio), whose mu must
+# depart beyond the limit, so the check can fail. On an H100: mu 2.05e-2
+# (floor 1.49e-2, control 0.284), nu 2.50e-2 (floor 1.74e-2, control
+# 4.66e-2: nu is ruled by the small whole leaves, so its control is not
+# required). Both norms of the piece (the psum missing on both sides)
+# moved mu by 3e-4 only: the trust ratio is a ratio of norms, and a
+# piece's two norms shrink together. The parameters' change after the
+# last step (lr 3.2e-7 times Adam's direction, near its sign) is printed
+# (0.150 from one process, floor 0.127, control 0.150) and required
+# finite only: it reads the gradient's signs, which rounding flips
+FSDP_F32_LOSS_RTOL, FSDP_F32_MU_RTOL, FSDP_F32_STEPS = 1e-5, 0.25, 2
+FSDP_F32_LARS_RTOL = 0.1
+DET_BATCH, DET_STEPS, DET_TIMED = 128, 3, 3
+# #9 against its plain version at each launch (phase 17's limit); the
+# float32 step's parts against the per-replica oracle (the same function:
+# the ranks' pmean of W x their rows' share against one backward), and its
+# pmean'd gradient: all tensors together, and each tensor above 1e-3 of the
+# largest tensor's norm, relative to its norm. The gradient's limits are
+# rounding carried back through 53 train-mode BatchNorm backwards over 64
+# images (measured 2.6e-4 together, 3.3e-4 the worst tensor on an H100; the
+# first limit tried, 1e-4 together, failed there); a missing pmean or a
+# heatmap term averaged over the wrong rows is off by O(1)
+DET_SUMS_RTOL, DET_PARTS_RTOL, DET_GRAD_RTOL, DET_TENSOR_RTOL = 1e-5, 1e-5, 2e-3, 1e-2
+# the ring's queries emulated on the CPU in rotation order: the first of
+# each rank's shard
+SH_CPU_QUERIES = 256
+
+
+def _fsdp_arm(axis, seed: int) -> dict:
+    """FSDP on this rank: bf16 steps with #2/#4, bytes, timings, #10 at the
+    synced conv1x1 sites, float32 against one process."""
+    import torch
+
+    from simhand_tpu_torch.losses import ntxent_kernels as K
+    from simhand_tpu_torch.ops import conv1x1 as C
+    from simhand_tpu_torch.parallel import make_fsdp_train_step, state_bytes
+    from simhand_tpu_torch.train import make_schedule, make_train_step
+
+    rank, cfg, batch = axis.index, step_config(), synthetic_batch(seed)
+    out = {}
+    if rank == 0:
+        ref = new_state(seed)
+        out["single_loss0"] = float(make_train_step(ref.model, cfg)(ref, batch)[1]
+                                    ["contrastive_loss"])
+        del ref
+        torch.cuda.empty_cache()
+    state = new_state(seed)
+    whole = state_bytes(state)
+    step, place_state, place_batch = make_fsdp_train_step(state.model, cfg, axis, state)
+    state = place_state(state)
+    local = place_batch(batch)
+    out.update(whole_bytes=whole, held_bytes=state_bytes(state))
+    require(out["held_bytes"] < 0.55 * whole,
+            f"rank {rank} holds {out['held_bytes']} of the state's {whole} bytes")
+    K.reset_launches()
+    losses = []
+    for _ in range(FSDP_STEPS):
+        state, metrics = step(state, local)
+        losses.append(float(metrics["contrastive_loss"]))
+    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    out.update(losses=losses, launches=launches)
+    require(all(math.isfinite(v) for v in losses), f"rank {rank} FSDP losses {losses}")
+    want = {k: FSDP_STEPS * (k in ("weighted_ntxent_denominator", "weighted_grad_rows"))
+            for k in launches}
+    require(launches == want, f"rank {rank}: FSDP launches {launches}, not {want}")
+    if rank == 0:
+        out["loss0_rel"] = abs(losses[0] / out["single_loss0"] - 1)
+        require(out["loss0_rel"] <= FSDP_LOSS_RTOL,
+                f"FSDP step-0 loss {losses[0]} against one process's {out['single_loss0']}")
+    state, _, dt = timed(step, state, local, FSDP_TIMED)
+    out["step_ms"] = dt * 1e3
+    flat = torch.zeros(sum(s.numel() for s, d in zip(state.shards, state.dims)
+                           if d is not None) * axis.size, device="cuda")
+    for name, fn in (("gather_ms", state.gather_params),
+                     ("reduce_scatter_ms", lambda: state.mesh.fsdp.scatter_raw(flat))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FSDP_TIMED):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / FSDP_TIMED * 1e3
+    out["split_mb"] = flat.numel() * 4 / 1e6
+    del state, step, flat
+    torch.cuda.empty_cache()
+
+    # #10 at the synced conv1x1 sites under FSDP
+    state = new_state(seed, conv1x1_fuse_min_cin=CONV_FUSE_MIN_CIN)
+    step, place_state, _ = make_fsdp_train_step(state.model, cfg, axis, state)
+    state = place_state(state)
+    C.reset_launches()
+    state, metrics = step(state, local)
+    out["conv1x1"] = {"loss": float(metrics["contrastive_loss"]),
+                      "launches": {fn.__name__: fn.launches for fn in C.KERNELS}}
+    require(out["conv1x1"]["launches"] == {"conv1x1_stats": CONV_PER_STEP,
+                                           "conv1x1_bn_relu_stats": 0},
+            f"rank {rank}: #10 under FSDP {out['conv1x1']}")
+    del state, step
+    torch.cuda.empty_cache()
+
+    out["f32"] = _fsdp_f32(axis, seed, cfg, batch, local)
+    return out
+
+
+def _f32_run(state, step, batch: dict, steps: int) -> dict:
+    """``steps`` float32 steps of ``step`` from ``state``: the losses, mu
+    after the first step, and mu, nu and the parameters' change after the
+    last (whole tensors: a collective on every rank for an FSDP state)."""
+    names = [n for n, _ in state.model.named_parameters()]
+
+    def snap():
+        p = state.payload()
+        return ([p["model"][n].clone() for n in names],
+                *([t.clone() for t in p["optimizer"][k]] for k in ("mu", "nu")))
+
+    before, losses, mu0 = snap()[0], [], None
+    for i in range(steps):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["contrastive_loss"]))
+        if i == 0:
+            mu0 = snap()[1]
+    after, mu, nu = snap()
+    return {"names": names, "losses": losses, "mu0": mu0, "mu": mu, "nu": nu,
+            "dp": [a - b for a, b in zip(after, before)]}
+
+
+def _fsdp_f32(axis, seed: int, cfg, batch: dict, local: dict) -> dict | None:
+    """FSDP in float32 against one process's step in the two settings of
+    FSDP_F32_*; the record on rank 0, None on the others."""
+    import torch
+
+    from simhand_tpu_torch.parallel import make_fsdp_train_step
+    from simhand_tpu_torch.train import make_train_step
+
+    unclipped = {"lars_clip": False}
+
+    def fsdp(steps, opt=None, piece_norms=False):
+        state = new_state(seed, torch.float32, opt)
+        step, place_state, _ = make_fsdp_train_step(state.model, cfg, axis, state)
+        state = place_state(state)
+        if piece_norms:
+            # the control: each split leaf's gradient norm of its piece alone
+            norms = state.optimizer._global_norms
+            state.optimizer._global_norms = lambda p, g: (norms(p, g)[0], g)
+        rec = _f32_run(state, step, local, steps)
+        del state, step
+        torch.cuda.empty_cache()
+        return rec
+
+    def single(steps, opt=None, reverse=False):
+        state = new_state(seed, torch.float32, opt)
+        rows = {k: v.flip(0) for k, v in batch.items()} if reverse else batch
+        rec = _f32_run(state, make_train_step(state.model, cfg), rows, steps)
+        del state
+        torch.cuda.empty_cache()
+        return rec
+
+    got = {"a": fsdp(1), "b": fsdp(FSDP_F32_STEPS, unclipped),
+           "control": fsdp(FSDP_F32_STEPS, unclipped, piece_norms=True)}
+    for name, rec in got.items():
+        require(all(math.isfinite(v) for v in rec["losses"])
+                and all(bool(t.isfinite().all()) for t in rec["dp"]),
+                f"rank {axis.index}: float32 FSDP run {name} not finite")
+    if axis.index != 0:
+        return None
+    want = {"a": single(1), "b": single(FSDP_F32_STEPS, unclipped)}
+    floor = {"a": single(1, reverse=True), "b": single(FSDP_F32_STEPS, unclipped, reverse=True)}
+
+    def rel(key, a, b):
+        held = [(x, y) for n, x, y in zip(a["names"], a[key], b[key])
+                if n != "projection_head.fc1.bias"]
+        return (sum(float((x - y).double().square().sum()) for x, y in held)
+                / sum(float(y.double().square().sum()) for _, y in held)) ** 0.5
+
+    loss_rel = max(abs(x / y - 1) for k in want
+                   for x, y in zip(got[k]["losses"], want[k]["losses"]))
+    rec = {"losses": {k: got[k]["losses"] for k in got},
+           "single_losses": {k: want[k]["losses"] for k in want}, "loss_rel": loss_rel,
+           "a_mu0_rel": rel("mu0", got["a"], want["a"]),
+           "a_mu0_floor": rel("mu0", floor["a"], want["a"])}
+    for key in ("mu", "nu", "dp"):
+        rec[f"b_{key}_rel"] = rel(key, got["b"], want["b"])
+        rec[f"b_{key}_floor"] = rel(key, floor["b"], want["b"])
+        rec[f"b_{key}_control"] = rel(key, got["control"], want["b"])
+    require(loss_rel <= FSDP_F32_LOSS_RTOL, f"float32 FSDP losses {rec['losses']} against "
+            f"one process's {rec['single_losses']}")
+    require(rec["a_mu0_rel"] <= FSDP_F32_MU_RTOL,
+            f"float32 FSDP gradient (mu after step 0) departs {rec['a_mu0_rel']} from one "
+            f"process's (one process against itself, pairs reversed: {rec['a_mu0_floor']})")
+    for key in ("mu", "nu"):
+        r, fl, c = (rec[f"b_{key}_{x}"] for x in ("rel", "floor", "control"))
+        require(r <= FSDP_F32_LARS_RTOL,
+                f"float32 FSDP {key} under unclipped LARS departs {r} from one process's "
+                f"(floor {fl}, control {c}, limit {FSDP_F32_LARS_RTOL})")
+    require(rec["b_mu_control"] > FSDP_F32_LARS_RTOL,
+            f"the control (piece gradient norms) departs only {rec['b_mu_control']} in mu: "
+            f"the check at {FSDP_F32_LARS_RTOL} cannot tell it (floor {rec['b_mu_floor']})")
+    return rec
+
+
+def _det_batch(seed: int) -> dict:
+    """A global detnet batch of DET_BATCH images made on the card from
+    seed: 3 of every 4 samples 3D."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = DET_BATCH
+    return {"img": torch.randn(n, 128, 128, 3, device="cuda", generator=gen),
+            "hm": torch.rand(n, 32, 32, 21, device="cuda", generator=gen),
+            "dm": torch.randn(n, 32, 32, 21, 3, device="cuda", generator=gen),
+            "lm": torch.randn(n, 32, 32, 21, 3, device="cuda", generator=gen),
+            "hm_veil": torch.ones(n, 21, device="cuda"),
+            "flag_3d": torch.tensor([1.0, 1.0, 0.0, 1.0] * (n // 4), device="cuda")}
+
+
+def _det_state(seed: int, dtype):
+    import torch
+
+    from simhand_tpu_torch.finetune.detnet import DetNet
+    from simhand_tpu_torch.finetune.train import init_detnet
+    from simhand_tpu_torch.train.optimizer import Adam
+    from simhand_tpu_torch.train.state import TrainState
+
+    model = DetNet(RESNET, dtype=dtype, bn_fused="pallas")
+    init_detnet(model, seed)
+    model.to(torch.device("cuda"))
+    return TrainState(model, Adam([(list(model.parameters()), lambda count: 1e-4)]))
+
+
+def _detnet_arm(axis, seed: int) -> dict:
+    """The data-parallel detnet step on this rank: #9 every launch checked,
+    timings, and a float32 step against the per-replica oracle."""
+    import torch
+
+    from simhand_tpu_torch.finetune.detloss import det_loss
+    from simhand_tpu_torch.finetune.train import make_detnet_train_step
+    from simhand_tpu_torch.models import fused_bn as FB
+    from simhand_tpu_torch.parallel import shard_batch
+
+    rank, batch = axis.index, _det_batch(seed)
+    local = shard_batch(axis, batch)
+    state = _det_state(seed, torch.bfloat16)
+    step = make_detnet_train_step(state.model, axis)
+    real_launch, errs = FB._launch, []
+
+    def checked_launch(x2d, dy2d, mu, inv):
+        got = real_launch(x2d, dy2d, mu, inv)
+        want = FB.bn_backward_reduces_plain(x2d, dy2d, mu, inv)
+        errs.append(max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                        for a, b in zip(got, want)))
+        return got
+
+    FB._launch = checked_launch
+    FB.reset_launches()
+    parts = []
+    try:
+        for _ in range(DET_STEPS):
+            state, p = step(state, local)
+            parts.append(float(p["det_total"]))
+    finally:
+        FB._launch = real_launch
+    launches = FB.bn_backward_reduces.launches
+    out = {"det_total": parts, "launches": launches, "sums_rel": max(errs)}
+    require(all(math.isfinite(v) for v in parts), f"rank {rank} detnet det_total {parts}")
+    require(launches == FUSED_BN_PER_STEP * DET_STEPS and len(errs) == launches,
+            f"rank {rank}: #9 launched {launches} times in {DET_STEPS} steps")
+    require(out["sums_rel"] <= DET_SUMS_RTOL, f"rank {rank}: #9 against its plain version "
+            f"{out['sums_rel']}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DET_TIMED):
+        state, p = step(state, local)
+    float(p["det_total"])
+    out["step_ms"] = (time.perf_counter() - t0) / DET_TIMED * 1e3
+    del state, step
+    torch.cuda.empty_cache()
+
+    # float32: the ranks' step against the per-replica oracle in one process
+    state = _det_state(seed, torch.float32)
+    step = make_detnet_train_step(state.model, axis)
+    seen, real_step = {}, state.optimizer.step
+
+    def recording(grads):
+        seen["grads"] = [g.clone() for g in grads]
+        real_step(grads)
+
+    state.optimizer.step = recording
+    state, p = step(state, local)
+    got_parts = {k: float(v) for k, v in p.items()}
+    del state, step
+    torch.cuda.empty_cache()
+    if rank == 0:
+        oracle = _det_state(seed, torch.float32).model.train()
+        n = DET_BATCH // axis.size
+        preds = [oracle(batch["img"][r * n:(r + 1) * n]) for r in range(axis.size)]
+        preds = {k: torch.cat([q[k] for q in preds]) for k in ("h_map", "d_map", "l_map")}
+        total, want_parts = det_loss(preds, batch["hm"], batch["dm"], batch["lm"],
+                                     batch["hm_veil"], batch["flag_3d"])
+        want = torch.autograd.grad(total, list(oracle.parameters()))
+        parts_rel = max(abs(got_parts[k] / float(v.detach()) - 1)
+                        for k, v in want_parts.items())
+        diff = sum(float((g - w).double().square().sum()) for g, w in zip(seen["grads"], want))
+        norm = sum(float(w.double().square().sum()) for w in want)
+        largest = max(float(w.norm()) for w in want)
+        per = [float((g - w).norm() / w.norm()) for g, w in zip(seen["grads"], want)
+               if float(w.norm()) >= 1e-3 * largest]
+        out["f32"] = {"parts": got_parts, "parts_rel": parts_rel,
+                      "grad_rel": (diff / norm) ** 0.5, "tensor_rel": max(per),
+                      "tensors_held": len(per)}
+        require(parts_rel <= DET_PARTS_RTOL, f"detnet float32 parts {got_parts} against the "
+                f"per-replica oracle's {want_parts}")
+        require(out["f32"]["grad_rel"] <= DET_GRAD_RTOL and max(per) <= DET_TENSOR_RTOL,
+                f"detnet float32 gradient against the oracle: {out['f32']}")
+        del oracle, preds, want, total
+    del seen
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cpu_ring_rows(kp, vids, rank: int, size: int, rows: int):
+    """The first ``rows`` queries of ``rank``'s shard mined on the CPU with
+    the ring's padding, merging the database blocks in its rotation order
+    (its own block, then the previous rank's, ...)."""
+    import torch
+
+    from simhand_tpu_torch.mining import similar_hands as S
+
+    n, chunk = len(kp), MINE_CHUNK
+    kp_t, vids_t = torch.from_numpy(kp), torch.from_numpy(vids)
+    dpad = (-n) % (chunk * size)
+    db = S._pad(kp_t, dpad, 0.0)
+    dbv = S._pad(vids_t, dpad, S.PAD_DB_VIDEO)
+    dbi = S._pad(torch.arange(n, dtype=torch.int32), dpad, -1)
+    q_lo = rank * (n + (-n) % (chunk * size)) // size
+    q = slice(q_lo, q_lo + rows)
+    qi = torch.arange(q_lo, q_lo + rows, dtype=torch.int32)
+    best = (torch.full((rows, 1), float("inf")), torch.full((rows, 1), -1, dtype=torch.int32))
+    blk = db.shape[0] // size
+    for r in range(size):
+        b = slice(((rank - r) % size) * blk, ((rank - r) % size + 1) * blk)
+        best = S._merge_block(kp_t[q], vids_t[q], qi, db[b], dbv[b], dbi[b], *best, 1, chunk)
+    return q_lo, best[0].numpy(), best[1].numpy()
+
+
+def _mining_arm(axis, seed: int) -> dict:
+    """Sharded mining on this rank at phase 19's cell: both modes timed, the
+    replicated database against phase 19's single-device result bit for
+    bit, the ring's distances too and its first queries against the ring
+    on the CPU; the tie corpus's ring on the card against the same ring on
+    the CPU."""
+    import numpy as np
+    import torch
+
+    from simhand_tpu_torch.mining import similar_hands as S
+
+    rank = axis.index
+    single = np.load(_mining_dir(seed) / "single.npz")
+    rng = np.random.default_rng(seed)
+    kp = rng.uniform(0, 1, size=(MINE_N, 21, 2)).astype(np.float32)
+    vids = rng.integers(0, MINE_VIDEOS, size=MINE_N).astype(np.int32)
+    kw = dict(k=1, query_chunk=MINE_CHUNK, db_chunk=MINE_CHUNK, mesh=axis)
+    out = {}
+    for mode in ("replicated", "ring"):
+        axis.reduce_raw(torch.zeros(1, device="cuda"), "sum")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d, i = S.mine_similar_hands(kp, vids, shard_db=mode == "ring", **kw)
+        secs = time.perf_counter() - t0
+        out[mode] = {"s": secs, "hands_per_s": MINE_N / secs}
+        require(same_bits(d, single["d"]), f"rank {rank} {mode}: distances differ from "
+                "phase 19's single-device result")
+        differ = int((i != single["i"]).sum())
+        out[mode]["indices_differ"] = differ
+        if mode == "replicated":
+            require(differ == 0, f"rank {rank}: the replicated database's indices differ "
+                    f"from one device's at {differ} queries")
+        else:
+            q_lo, cd, ci = _cpu_ring_rows(kp, vids, rank, axis.size, SH_CPU_QUERIES)
+            rows = slice(q_lo, q_lo + SH_CPU_QUERIES)
+            require(same_bits(d[rows], cd) and same_bits(i[rows], ci),
+                    f"rank {rank}: the ring's queries {q_lo}.. differ from the CPU's ring")
+    trng = np.random.default_rng(seed + 1)
+    base = trng.integers(0, 4, size=(TIE_POSES, 21, 2)).astype(np.float32)
+    tkp = base[trng.integers(0, TIE_POSES, size=TIE_N)]
+    tvids = trng.integers(0, TIE_VIDEOS, size=TIE_N).astype(np.int32)
+    tkw = dict(k=TIE_K, query_chunk=TIE_QUERY_CHUNK, db_chunk=TIE_DB_CHUNK, mesh=axis,
+               shard_db=True)
+    got = S.mine_similar_hands(tkp, tvids, **tkw)
+    want = S.mine_similar_hands(tkp, tvids, device="cpu", **tkw)
+    require(same_bits(got[0], want[0]) and same_bits(got[1], want[1]),
+            f"rank {rank}: the tie corpus's ring on the card differs from the CPU's")
+    one = S.mine_similar_hands(tkp, tvids, device="cpu", k=TIE_K,
+                               query_chunk=TIE_QUERY_CHUNK, db_chunk=TIE_DB_CHUNK)
+    out["tie_ring_indices_differ_from_one_device"] = int((got[1] != one[1]).sum())
+    return out
+
+
+def _sharded_rank(seed: int, rank: int, port: int) -> dict:
+    """One of SH_WORLD ranks on the one card (phase 21)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from simhand_tpu_torch.parallel import create_mesh
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=SH_WORLD,
+                            timeout=datetime.timedelta(seconds=SH_DEADLINE_S))
+    axis = create_mesh()
+    out = {"rank": rank}
+    t0 = time.perf_counter()
+    out["fsdp"] = _fsdp_arm(axis, seed)
+    t1 = time.perf_counter()
+    out["detnet"] = _detnet_arm(axis, seed)
+    t2 = time.perf_counter()
+    out["mining"] = _mining_arm(axis, seed)
+    out["arm_s"] = {"fsdp": t1 - t0, "detnet": t2 - t1, "mining": time.perf_counter() - t2}
+    out["staged"] = sorted(axis.staged)
+    dist.destroy_process_group()
+    return out
+
+
+def _sharded_world1(seed: int, port: int) -> dict:
+    """The NCCL group at world size 1: the FSDP step against the
+    single-device step, bit for bit (one rank shards nothing and has no
+    axis)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from simhand_tpu_torch.parallel import create_mesh, make_fsdp_train_step
+    from simhand_tpu_torch.train import make_train_step
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=SH_DEADLINE_S),
+                            device_id=torch.device("cuda", 0))
+    axis = create_mesh()
+    cfg, batch = step_config(), synthetic_batch(seed)
+    single, fsdp = new_state(seed), new_state(seed)
+    single_step = make_train_step(single.model, cfg)
+    fsdp_step, place_state, place_batch = make_fsdp_train_step(fsdp.model, cfg, axis, fsdp)
+    fsdp, local = place_state(fsdp), place_batch(batch)
+    losses = {"single": [], "fsdp": []}
+    for _ in range(SH_W1_STEPS):
+        single, m = single_step(single, batch)
+        losses["single"].append(float(m["contrastive_loss"]))
+        fsdp, m = fsdp_step(fsdp, local)
+        losses["fsdp"].append(float(m["contrastive_loss"]))
+    want, got = single.payload(), fsdp.payload()
+    differ = [k for k in want["model"] if not torch.equal(want["model"][k], got["model"][k])]
+    differ += [f"mu{j}" for j, (a, b) in enumerate(zip(want["optimizer"]["mu"],
+                                                       got["optimizer"]["mu"]))
+               if not torch.equal(a, b)]
+    dist.destroy_process_group()
+    require(losses["single"] == losses["fsdp"], f"NCCL world 1 FSDP losses {losses}")
+    require(not differ, f"NCCL world 1 FSDP: {len(differ)} tensors differ, e.g. {differ[:3]}")
+    return {"losses": losses["fsdp"],
+            "tensors_equal": len(want["model"]) + len(want["optimizer"]["mu"])}
+
+
+def sharded_phase(seed: int) -> tuple[dict, dict]:
+    """Phase 21: the NCCL world-1 process, then the SH_WORLD gloo ranks.
+    Returns the phase's record and the launches a rank a step of #2/#4
+    (FSDP) and #9 (the detnet step)."""
+    import pathlib
+
+    t0 = time.perf_counter()
+    work = pathlib.Path(__file__).resolve().parent / "build" / f"sharded_{seed}"
+    work.mkdir(parents=True, exist_ok=True)
+    deadline = time.monotonic() + SH_DEADLINE_S
+    common = ["--seed", str(seed)]
+    _run_children([["--dp-role", "sharded_world1", "--dp-port", str(_free_port()),
+                    "--dp-out", str(work / "world1.json"), *common]], deadline)
+    world1 = json.loads((work / "world1.json").read_text())
+    w1_s = time.perf_counter() - t0
+    print(f"NCCL world 1: the FSDP step == the single-device step bit for bit over "
+          f"{SH_W1_STEPS} steps (losses {world1['losses']}, {world1['tensors_equal']} "
+          f"tensors and moments); {w1_s:.1f} s")
+    t1 = time.perf_counter()
+    port = _free_port()
+    logs = _run_children([["--dp-role", "sharded_rank", "--dp-rank", str(r), "--dp-port",
+                           str(port), "--dp-out", str(work / f"rank{r}.json"), *common]
+                          for r in range(SH_WORLD)], deadline)
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(SH_WORLD)]
+    ranks_s = time.perf_counter() - t1
+    r0 = ranks[0]
+    f = r0["fsdp"]
+    print(f"FSDP on {SH_WORLD} ranks of one card (ResNet-50, {SIDE}x{SIDE}, bf16, B = {PAIRS} "
+          f"pairs): losses {f['losses']}, step 0 rel {f['loss0_rel']:.2e} to one process's "
+          f"{f['single_loss0']:.7f}; launches a rank {[r['fsdp']['launches'] for r in ranks]}")
+    print(f"FSDP state held a rank: {[r['fsdp']['held_bytes'] / 1e6 for r in ranks]} MB of the "
+          f"replicated {f['whole_bytes'] / 1e6:.1f} MB; {f['step_ms']:.2f} ms/step (two "
+          f"processes sharing one card, no scaling claim); gather {f['gather_ms']:.2f} ms and "
+          f"reduce-scatter {f['reduce_scatter_ms']:.2f} ms of the {f['split_mb']:.1f} MB of "
+          f"split leaves over gloo; #10 under FSDP {f['conv1x1']}")
+    print(f"FSDP float32 against one process: {f['f32']}")
+    d = r0["detnet"]
+    print(f"data-parallel detnet (ResNet-50, 128x128, bf16, {DET_BATCH} images, fused_pallas): "
+          f"det_total {d['det_total']}; #9 {[r['detnet']['launches'] for r in ranks]} launches "
+          f"a rank in {DET_STEPS} steps, worst sums rel "
+          f"{max(r['detnet']['sums_rel'] for r in ranks):.2e}; {d['step_ms']:.2f} ms/step; "
+          f"float32 against the per-replica oracle {d['f32']}")
+    m = r0["mining"]
+    print(f"sharded mining {MINE_N} hands on {SH_WORLD} ranks of one card: replicated "
+          f"{m['replicated']['s']:.2f} s ({m['replicated']['hands_per_s']:.1f} hands/s), == one "
+          f"device bit for bit; ring {m['ring']['s']:.2f} s ({m['ring']['hands_per_s']:.1f} "
+          f"hands/s), distances == one device's, {m['ring']['indices_differ']} indices settled "
+          f"otherwise by the rotation, the first {SH_CPU_QUERIES} queries of each rank == the "
+          f"ring on the CPU; tie corpus ring card == CPU "
+          f"({m['tie_ring_indices_differ_from_one_device']} indices differ from one device's)")
+    staged = sorted({s for r in ranks for s in r["staged"]})
+    phase_s = time.perf_counter() - t0
+    print(f"gloo staged through the host: {staged}; arms a rank {r0['arm_s']}")
+    print(f"phase 21 (FSDP, data-parallel detnet, sharded mining): {phase_s:.1f} s, of it the "
+          f"two ranks {ranks_s:.1f} s")
+    launches = {**{k: n // FSDP_STEPS for k, n in f["launches"].items()},
+                "conv1x1_stats": f["conv1x1"]["launches"]["conv1x1_stats"],
+                "bn_backward_reduces": d["launches"] // DET_STEPS}
+    perf = {"world1": world1, "ranks": ranks, "phase_s": phase_s, "ranks_s": ranks_s,
+            "staged": staged, "rank_logs_tail": [log[-2000:] for log in logs]}
+    return perf, launches
+
+
 def processes_below(pid: int) -> dict[int, str]:
     """Every process below ``pid`` (children, theirs, ...) by pid, with its
     command, from the parent links in /proc."""
@@ -4015,8 +4620,9 @@ def plain_family(state, batch) -> tuple[dict, dict]:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    # phase 20's processes: this script started again as one of them
-    parser.add_argument("--dp-role", choices=("world1", "rank"), help=argparse.SUPPRESS)
+    # phase 20's and 21's processes: this script started again as one of them
+    parser.add_argument("--dp-role", choices=("world1", "rank", "sharded_world1", "sharded_rank"),
+                        help=argparse.SUPPRESS)
     parser.add_argument("--dp-rank", type=int, default=0, help=argparse.SUPPRESS)
     parser.add_argument("--dp-port", type=int, default=0, help=argparse.SUPPRESS)
     parser.add_argument("--dp-out", help=argparse.SUPPRESS)
@@ -4088,6 +4694,7 @@ def main() -> int:
         stop_worker_server()
     phase_19_s = time.perf_counter() - t19
     print(f"phase 19 (mining and the loader): {phase_19_s:.1f} s")
+    sharded_perf, sharded_launches = sharded_phase(args.seed)
     left = stop_processes_left()
     require(not left, f"processes left running after the phases: {left}")
 
@@ -4099,6 +4706,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": path_launches[name],
             **shapes[MAIN_SHAPE], "library_ms": None, "at": shapes,
             "sharded_launches_a_rank_a_step": dp_launches[name],
+            "fsdp_launches_a_rank_a_step": sharded_launches[name],
             **({"entry_point_launches": entry_launches[name]} if name in entry_launches
                and name.startswith("weighted") else {}),
         })
@@ -4122,6 +4730,7 @@ def main() -> int:
         **{k: main_row[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "library_device_ms")},
         "finetune_launches": finetune_launches["bn_backward_reduces"],
+        "data_parallel_launches_a_rank_a_step": sharded_launches["bn_backward_reduces"],
         "finetune_rel_err": finetune_perf["bn_backward_reduces_rel"],
         "at": fused_bn_report["bn_backward_reduces"],
     })
@@ -4134,7 +4743,8 @@ def main() -> int:
                                         "plain_ms", "bound_ms", "bound_by", "matmul_ms",
                                         "ratio_to_matmul")},
             "library_ms": None, "at": shapes,
-            **({"sharded_launches_a_rank_a_step": dp_launches[name]}
+            **({"sharded_launches_a_rank_a_step": dp_launches[name],
+                "fsdp_launches_a_rank_a_step": sharded_launches[name]}
                if name in dp_launches else {}),
         })
     main_row = conv_bias_report["conv_bias_act"][CONV_BIAS_MAIN_SHAPE]
@@ -4169,7 +4779,7 @@ def main() -> int:
                       "serving": serve_perf, "server": server_perf,
                       "serving_entry_points": entry_serving_perf,
                       "mining": mining_perf, "loader": loader_perf,
-                      "data_parallel": dp_perf,
+                      "data_parallel": dp_perf, "sharded": sharded_perf,
                       "phase_19_s": phase_19_s, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

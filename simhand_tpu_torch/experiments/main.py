@@ -25,7 +25,12 @@ rank 0's initial state, and each rank reads the same global batch stream
 global-batch loss, the gradients and BatchNorm statistics are averaged
 over the ranks (BatchNorm itself is per-replica, as JAX's main builds
 it), validation is sharded the same way, and only rank 0 logs, writes
-checkpoints and exports. One process runs exactly as before.
+checkpoints and exports. With ``--fsdp`` the ranks hold 1/W of the
+parameters and Adam moments each (``parallel/fsdp.py``) and the step is
+JAX's FSDP step: every BatchNorm, the projection head's too, over the
+global batch; evaluation and export see the gathered parameters, and
+checkpoints are the whole state, as a replicated run writes them. One
+process runs exactly as before.
 
 Where it departs from the JAX package:
   * with ``-log_interval epoch`` (the default) the per-step losses stay
@@ -40,8 +45,8 @@ Where it departs from the JAX package:
   * ``--profile_dir`` records ``torch.profiler`` and writes a Chrome trace
     there, in place of ``jax.profiler``;
   * ``--fsdp`` on one device does nothing, as JAX's does there (it needs a
-    mesh); with ``WORLD_SIZE > 1`` it raises: the sharded parameter and
-    optimizer layout is not ported yet;
+    mesh); with ``WORLD_SIZE > 1`` the fused BatchNorm variants raise
+    under it (their kernels have no cross-replica reduce);
   * with several ranks, the preemption flag is agreed over the ranks at
     each step (one all-reduce of a host integer over gloo, beside NCCL),
     so every rank saves or stops at the same step and none waits for its
@@ -77,7 +82,9 @@ from simhand_tpu_torch.models import ContrastiveConfig, ContrastiveModel
 from simhand_tpu_torch.parallel import (
     create_mesh,
     device_prefetch,
+    gathered,
     init_distributed,
+    make_fsdp_train_step,
     replicate,
     shard_batch,
 )
@@ -165,11 +172,6 @@ def main(argv=None, device=None):
     dev = resolve_device(device or args.device)
     if int(os.environ.get("WORLD_SIZE", 1)) <= 1:
         return _run(args, dev, None)
-    if getattr(args, "fsdp", False):
-        raise NotImplementedError(
-            "--fsdp with WORLD_SIZE > 1: the sharded parameter and optimizer layout "
-            "(parallel/fsdp.py) is not ported yet; it comes with the next slice of the "
-            "port. Drop --fsdp for data parallelism with replicated state")
     import torch.distributed as dist
 
     dev = init_distributed(dev)
@@ -271,8 +273,6 @@ def _run(args, dev: torch.device, axis):
     side = int(params.resize_shape[0])
     state = create_train_state(model, opt_cfg, seed, input_shape=(2, side, side, 3),
                                device=dev)
-    if axis is not None:
-        state = replicate(axis, state)
     logger.info(
         "model rn%s, base lr %.3e, %d iters/epoch",
         model_param["resnet_size"], opt_cfg.base_lr, iters_per_epoch,
@@ -293,10 +293,32 @@ def _run(args, dev: torch.device, axis):
     )
 
     augment = (flags, params, side) if args.device_augment else None
-    step_fn = make_train_step(model, ccfg, augment=augment, axis=axis)
+    if getattr(args, "fsdp", False) and axis is not None:
+        # ZeRO-3: parameters and Adam moments split over the ranks; every
+        # BatchNorm, the head's too, and the loss over the global batch
+        # (== one device's step on it; tests/test_torch_fsdp.py)
+        step_fn, place_state, _ = make_fsdp_train_step(model, ccfg, axis, state,
+                                                       augment=augment)
+        state = place_state(replicate(axis, state))
+    else:
+        step_fn = make_train_step(model, ccfg, augment=augment, axis=axis)
+        if axis is not None:
+            state = replicate(axis, state)
     # under --device_augment the evaluation takes raw batches and augments
-    # them with the fixed EVAL_AUGMENT_SEED, so validation never goes blind
-    eval_fn = make_eval_step(model, ccfg, augment=augment, axis=axis)
+    # them with the fixed EVAL_AUGMENT_SEED, so validation never goes blind;
+    # under FSDP it sees the gathered parameters
+    eval_step = make_eval_step(model, ccfg, augment=augment, axis=axis)
+
+    def eval_fn(state, batch):
+        with gathered(state):
+            return eval_step(state, batch)
+
+    def save(step: int, metrics: dict) -> None:
+        # an FSDP state's payload is gathered on every rank; rank 0 writes
+        if is_main:
+            manager.save(step, state, metrics)
+        else:
+            state.payload()
 
     # the held-out slice: Hand100M has no labelled val set, so the tail
     # (1 - train_ratio) of the index space serves as one
@@ -474,11 +496,8 @@ def _run(args, dev: torch.device, axis):
                         # every rank stops at the same step
                         preempted["flag"] = axis.any_rank(preempted["flag"])
                     if preempted["flag"]:
-                        if is_main:
-                            manager.save(
-                                global_step, state,
-                                {"contrastive_loss": float(metrics["contrastive_loss"])},
-                            )
+                        save(global_step,
+                             {"contrastive_loss": float(metrics["contrastive_loss"])})
                         manager.wait()
                         logger.warning("checkpoint saved at step %d; exiting", global_step)
                         stop = True
@@ -529,9 +548,8 @@ def _run(args, dev: torch.device, axis):
                     val_losses.append(
                         eval_fn(state, _to_device(val_batch, dev))["contrastive_loss"])
                 log_metrics({"contrastive_loss_val": _mean(val_losses)}, global_step)
-            if is_main and ((epoch + 1) % max(int(args.save_period), 1) == 0
-                            or epoch == epochs - 1):
-                manager.save(global_step, state, {"contrastive_loss": mean_loss})
+            if (epoch + 1) % max(int(args.save_period), 1) == 0 or epoch == epochs - 1:
+                save(global_step, {"contrastive_loss": mean_loss})
     finally:
         if previous_handler is not None:
             signal.signal(signal.SIGTERM, previous_handler)
@@ -542,9 +560,11 @@ def _run(args, dev: torch.device, axis):
         os.makedirs(args.profile_dir, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
 
-    if args.export_torch and is_main:
-        export_torch_encoder(state, args.export_torch)
-        logger.info("exported torch encoder to %s", args.export_torch)
+    if args.export_torch:
+        with gathered(state):
+            if is_main:
+                export_torch_encoder(state, args.export_torch)
+                logger.info("exported torch encoder to %s", args.export_torch)
     if metric_logger is not None:
         metric_logger.close()
     manager.close()

@@ -424,13 +424,22 @@ _RIDERS = ("joint", "joint_root", "joint_bone", "tips_3d")
 
 def detnet_batch_iterator(dataset, builder: DetnetSampleBuilder, batch_size: int,
                           seed: int = 0, epoch: int = 0, shuffle: bool = True,
-                          drop_remainder: bool = True, device=None):
+                          drop_remainder: bool = True, device=None,
+                          shard: tuple[int, int] | None = None):
     """Batches in the JAX package's order with its keys: the targets as
     numpy arrays, ``img`` a float32 tensor on ``device`` (``cuda`` unless
     the caller passes ``"cpu"``), made by one image stage a batch.
     ``drop_remainder=False`` (eval) also yields the final partial batch, so
-    no sample is silently excluded from reported metrics."""
+    no sample is silently excluded from reported metrics.
+
+    ``shard=(index, count)`` builds only rows ``[index B/count, (index+1)
+    B/count)`` of each global batch of ``batch_size`` (``shard_batch``'s
+    rows; every sample's draws are keyed by its index, so they are the
+    same rows), so a data-parallel rank decodes and augments its share
+    alone."""
     dev = resolve_device(device)
+    if shard is not None and batch_size % shard[1]:
+        raise ValueError(f"batch_size {batch_size} does not split over {shard[1]} ranks")
     if hasattr(dataset, "set_epoch"):
         dataset.set_epoch(epoch)
     n = len(dataset)
@@ -440,6 +449,9 @@ def detnet_batch_iterator(dataset, builder: DetnetSampleBuilder, batch_size: int
     n_batches = n // batch_size if drop_remainder else -(-n // batch_size)
     for b in range(n_batches):
         idxs = order[b * batch_size : (b + 1) * batch_size]
+        if shard is not None:
+            n_local = batch_size // shard[1]
+            idxs = idxs[shard[0] * n_local:(shard[0] + 1) * n_local]
         samples, frames, draws = [], [], []
         for i in idxs:
             rng = np.random.default_rng([seed, epoch, int(i)])

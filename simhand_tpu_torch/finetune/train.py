@@ -7,7 +7,19 @@
 
 Every flag of the JAX trainer, with its type, default and choices, plus
 ``--device`` (``cuda``, the default, or ``cpu``; without a card and without
-``--device cpu`` it raises). One device: the port's step has no mesh.
+``--device cpu`` it raises).
+
+On several GPUs it runs one process a GPU, data-parallel, as the JAX
+trainer runs on a mesh: launched the torchrun way (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), it joins
+the process group, takes rank 0's initial state, and each rank builds
+(decodes and augments) only its rows of every global batch
+(``--batch_size`` is the global batch). The
+step's BatchNorm is per-replica; the gradients, the loss parts and the
+running statistics are averaged over the ranks, and ``det_loss`` takes its
+3D terms over the global batch. Rank 0 alone evaluates and writes the
+checkpoints, the curves and ``detnet.pth``; the other ranks wait for it
+at a barrier with a deadline (``WRITE_DEADLINE_S``).
 
 The loop reads ``det_total`` and the curves' parts off the device after
 every step (``float(parts[...])``), as the JAX loop does: one sync a step.
@@ -31,13 +43,17 @@ from simhand_tpu_torch.finetune.detloss import det_loss
 from simhand_tpu_torch.finetune.detnet import DetNet
 from simhand_tpu_torch.finetune.evaluation import AverageMeter, EvalUtil, heatmap_metrics
 from simhand_tpu_torch.finetune.registry import build_composed_dataset
+from simhand_tpu_torch.parallel.mesh import create_mesh, init_distributed, replicate
 from simhand_tpu_torch.train.checkpoint import CheckpointManager, export_state_dict
+from simhand_tpu_torch.train.loop import pmean_tensors, running_stats
 from simhand_tpu_torch.train.optimizer import Adam, exponential_decay
 from simhand_tpu_torch.train.state import TrainState, init_weights
 
 logger = logging.getLogger("simhand_tpu_torch.finetune")
 
 TRAIN_KEYS = ("img", "hm", "dm", "lm", "hm_veil", "flag_3d")
+#: how long the other ranks wait for rank 0's evaluation and writes
+WRITE_DEADLINE_S = 1800.0
 
 
 def to_device(batch: dict, device, keys=TRAIN_KEYS) -> dict:
@@ -46,11 +62,16 @@ def to_device(batch: dict, device, keys=TRAIN_KEYS) -> dict:
             .to(device, non_blocking=True) for k, v in batch.items() if k in keys}
 
 
-def make_detnet_train_step(model):
+def make_detnet_train_step(model, axis=None):
     """(state, batch) -> (state, parts): one Adam step of ``model`` on a
     batch of tensors on the model's device (``state``: a ``TrainState``
     whose optimizer is an ``Adam``); the BatchNorm statistics come from the
-    train-mode forward. The parts stay tensors on the device."""
+    train-mode forward. The parts stay tensors on the device.
+
+    With an ``axis`` the batch is this rank's rows: BatchNorm stays
+    per-replica in the forward, ``det_loss`` takes the axis, and the
+    gradients, the parts and then the running statistics are pmean'd (one
+    collective each), as JAX's mesh step does."""
 
     def step(state, batch):
         if state.model is not model:
@@ -58,11 +79,19 @@ def make_detnet_train_step(model):
         model.train()
         preds = model(batch["img"])
         total, parts = det_loss(preds, batch["hm"], batch["dm"], batch["lm"],
-                                batch["hm_veil"], batch["flag_3d"])
-        grads = torch.autograd.grad(total, state.optimizer.params)
-        state.optimizer.step(list(grads))
+                                batch["hm_veil"], batch["flag_3d"], axis=axis)
+        grads = list(torch.autograd.grad(total, state.optimizer.params))
+        parts = {k: v.detach() for k, v in parts.items()}
+        if axis is not None:
+            grads = pmean_tensors(axis, grads)
+            parts = dict(zip(parts, pmean_tensors(axis, list(parts.values()))))
+            stats = running_stats(model)
+            with torch.no_grad():
+                for s, m in zip(stats, pmean_tensors(axis, stats)):
+                    s.copy_(m)
+        state.optimizer.step(grads)
         state.step += 1
-        return state, {k: v.detach() for k, v in parts.items()}
+        return state, parts
 
     return step
 
@@ -165,11 +194,29 @@ def parse_args(argv=None):
 
 def main(argv=None, device=None):
     """Parses ``argv`` and fine-tunes; returns the train state. ``device``
-    overrides ``--device``."""
+    overrides ``--device``. With ``WORLD_SIZE > 1`` in the environment,
+    this process is one rank of a data-parallel run."""
     args = parse_args(argv)
     dev = resolve_device(device or args.device)
+    if int(os.environ.get("WORLD_SIZE", 1)) <= 1:
+        return _run(args, dev, None)
+    import torch.distributed as dist
 
-    logging.basicConfig(level=logging.INFO)
+    dev = init_distributed(dev)
+    try:
+        return _run(args, dev, create_mesh())
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, dev, axis):
+    """The run of ``main`` on ``dev``, one rank of ``axis`` (or alone)."""
+    is_main = axis is None or axis.index == 0
+    logging.basicConfig(level=logging.INFO if is_main else logging.WARNING)
+
+    def wait_for_rank0():
+        if axis is not None:
+            axis.barrier(WRITE_DEADLINE_S)
 
     weights = ([float(w) for w in args.sample_weights.split(",")]
                if args.sample_weights else None)
@@ -224,15 +271,22 @@ def main(argv=None, device=None):
         groups = [(list(model.parameters()), make_schedule(args.lr))]
     state = TrainState(model, Adam(groups))
 
-    os.makedirs(args.out_dir, exist_ok=True)
-    manager = CheckpointManager(os.path.join(args.out_dir, "checkpoints"), metric="det_total")
+    ckpt_dir = os.path.join(args.out_dir, "checkpoints")
+    if is_main:
+        os.makedirs(ckpt_dir, exist_ok=True)
+    wait_for_rank0()
+    manager = CheckpointManager(ckpt_dir, metric="det_total")
     global_step = 0
     if args.resume and manager.latest_step() is not None:
         state = manager.restore(state)
         global_step = manager.latest_step()
         logger.info("resumed from step %d", global_step)
 
-    step_fn = make_detnet_train_step(model)
+    if axis is not None:
+        state = replicate(axis, state)
+    step_fn = make_detnet_train_step(model, axis)
+    # each rank builds only its rows of every global batch
+    shard = None if axis is None else (axis.index, axis.size)
     builder = DetnetSampleBuilder(train=True)
     val_builder = DetnetSampleBuilder(train=False)
 
@@ -273,7 +327,7 @@ def main(argv=None, device=None):
         losses = []
         part_sums: dict[str, float] = {}
         for batch in detnet_batch_iterator(train_ds, builder, args.batch_size, epoch=epoch,
-                                           device=dev):
+                                           device=dev, shard=shard):
             state, parts = step_fn(state, to_device(batch, dev))
             losses.append(float(parts["det_total"]))
             for key in curve_files:
@@ -291,7 +345,7 @@ def main(argv=None, device=None):
             loss_rows[name].append([epoch + 1, part_sums.get(key, 0.0) / max(len(losses), 1)])
         logger.info("epoch %d: det_total %.4f (%.1fs)", epoch, float(np.mean(losses)),
                     time.time() - t0)
-        if (epoch + 1) % args.eval_every == 0 or epoch == args.epochs - 1:
+        if is_main and ((epoch + 1) % args.eval_every == 0 or epoch == args.epochs - 1):
             metrics = evaluate_detnet(model, val_ds, val_builder, args.batch_size, dev)
             logger.info("eval @ epoch %d: %s", epoch, metrics)
             if "auc" in metrics:
@@ -300,19 +354,23 @@ def main(argv=None, device=None):
             hm_extras_all.setdefault(val_name, []).append(
                 [epoch + 1, metrics["hm_pck_loose"], metrics["hm_dist"]])
             manager.save(global_step, state, {"det_total": float(np.mean(losses))})
-        dump_curves()
+        if is_main:
+            dump_curves()
+        wait_for_rank0()
         if args.max_steps and global_step >= args.max_steps:
             break
 
-    if manager.latest_step() != global_step:
-        manager.save(global_step, state, {"det_total": float(np.mean(losses))})
+    if is_main:
+        if manager.latest_step() != global_step:
+            manager.save(global_step, state, {"det_total": float(np.mean(losses))})
+        # torch-format export of the fine-tuned detnet, the JAX package's
+        # detnet.pth (minimal-hand keys)
+        path = os.path.join(args.out_dir, "detnet.pth")
+        export_state_dict(model, path)
+        logger.info("saved %s", path)
+    wait_for_rank0()
     manager.wait()
     manager.close()
-    # torch-format export of the fine-tuned detnet, the JAX package's
-    # detnet.pth (minimal-hand keys)
-    path = os.path.join(args.out_dir, "detnet.pth")
-    export_state_dict(model, path)
-    logger.info("saved %s", path)
     return state
 
 

@@ -9,6 +9,11 @@ annotation JSON. It runs on the card unless given ``--device cpu``:
 Video identity is derived from the frame path (``<video_id>/frame_x.jpg``
 or ``<video_id>_frame<idx>.jpg``) unless annotations carry an explicit
 ``video_id`` field. The output equals the JAX package's byte for byte.
+
+On several GPUs it runs one process a GPU, launched the torchrun way
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``): the queries are split over the ranks (and the database
+too with ``--shard_db``), and rank 0 alone writes the output.
 """
 from __future__ import annotations
 
@@ -51,16 +56,32 @@ def main(argv=None, device=None):
     p.add_argument("--query_chunk", type=int, default=4096)
     p.add_argument("--db_chunk", type=int, default=8192)
     p.add_argument("--shard_db", action="store_true", default=False,
-                   help="shard the keypoint DB over a mesh; the port mines on one "
-                        "device, where this flag changes nothing (as in the JAX "
-                        "package without a mesh)")
+                   help="shard the keypoint DB over the ranks too and "
+                        "rotate it round the ring (ppermute): for "
+                        "corpora whose replicated DB would not fit a card")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
 
     from simhand_tpu_torch.device import resolve_device
-    from simhand_tpu_torch.mining.similar_hands import attach_positives, mine_similar_hands
 
     dev = resolve_device(device or args.device)
+    if int(os.environ.get("WORLD_SIZE", 1)) <= 1:
+        return _run(args, dev, None)
+    import torch.distributed as dist
+
+    from simhand_tpu_torch.parallel.mesh import create_mesh, init_distributed
+
+    dev = init_distributed(dev)
+    try:
+        return _run(args, dev, create_mesh())
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, dev, mesh):
+    """The mining of ``main`` on ``dev``, one rank of ``mesh`` (or alone)."""
+    from simhand_tpu_torch.mining.similar_hands import attach_positives, mine_similar_hands
+
     with open(args.input) as f:
         data = json.load(f)
     images, annotations = data["images"], data["annotations"]
@@ -76,8 +97,10 @@ def main(argv=None, device=None):
     d, i = mine_similar_hands(
         kp, vids, k=args.k,
         query_chunk=args.query_chunk, db_chunk=args.db_chunk,
-        progress=True, device=dev,
+        mesh=mesh, progress=True, shard_db=args.shard_db and mesh is not None, device=dev,
     )
+    if mesh is not None and mesh.index != 0:
+        return
     annotations = attach_positives(annotations, d, i)
 
     os.makedirs(os.path.dirname(os.path.abspath(args.output)), exist_ok=True)

@@ -41,8 +41,15 @@ stable ascending sort of ``[best, chunk]``; the port takes the chunk's first
 k by ``min`` (which returns the first index of the minimum) and sorts the
 2k candidates stably.
 
-The sharded variants (``make_sharded_topk_all``, the ``ppermute`` ring of
-``make_ring_topk_all``) are not ported yet: ``mesh`` must be None.
+With a ``mesh`` (a ``parallel.mesh`` axis) the queries are split over the
+ranks: ``make_sharded_topk_all`` keeps the whole database on every rank,
+and ``make_ring_topk_all`` (``shard_db``) splits it too and passes each
+rank's block one hop round the ring (``ppermute``) after every round, so
+each query meets the database block by block in rotation order: its own
+rank's block first, then the previous rank's. The ring's ties can fall to
+another candidate than on one device, as JAX's ring's do; the replicated
+database's cannot. Each rank's result is all-gathered, so every rank
+returns the whole (N, k) arrays.
 
 Output plugs straight into the Hand100M v1-1 annotation schema
 (``positive_sample`` / ``distance`` fields).
@@ -150,6 +157,21 @@ def topk_similar(
     return best_d, best_i
 
 
+def _topk_all_queries(q_kp, q_vids, q_ids, db, db_vids, k: int, query_chunk: int,
+                      db_chunk: int, progress: bool = False):
+    """Every query chunk of (q_kp, q_vids, q_ids) streamed against the whole
+    database through ``topk_similar``; the results stay on the device."""
+    Q = q_kp.shape[0]
+    out = []
+    for lo in range(0, Q, query_chunk):
+        hi = lo + query_chunk
+        out.append(topk_similar(q_kp[lo:hi], q_vids[lo:hi], q_ids[lo:hi], db, db_vids, k=k,
+                                db_chunk=db_chunk))
+        if progress:
+            print(f"dispatched {min(hi, db.shape[0])}/{db.shape[0]}", flush=True)
+    return torch.cat([d for d, _ in out]), torch.cat([i for _, i in out])
+
+
 def topk_similar_all(
     kp: torch.Tensor,        # (Q, 21, 2), Q padded to a multiple of query_chunk
     vids: torch.Tensor,      # (Q,)
@@ -166,22 +188,77 @@ def topk_similar_all(
     queries, so query padding never enters the candidate set: zero-keypoint
     pad rows have small finite MPJPE to real hands and would otherwise be
     mined as bogus positives. ``progress`` prints the queries queued."""
-    Q, N = kp.shape[0], db.shape[0]
-    q_ids = torch.arange(Q, dtype=torch.int32, device=kp.device)
-    out = []
-    for lo in range(0, Q, query_chunk):
-        hi = lo + query_chunk
-        out.append(topk_similar(kp[lo:hi], vids[lo:hi], q_ids[lo:hi], db, db_vids, k=k,
-                                db_chunk=db_chunk))
-        if progress:
-            print(f"dispatched {min(hi, N)}/{N}", flush=True)
-    return torch.cat([d for d, _ in out]), torch.cat([i for _, i in out])
+    q_ids = torch.arange(kp.shape[0], dtype=torch.int32, device=kp.device)
+    return _topk_all_queries(kp, vids, q_ids, db, db_vids, k, query_chunk, db_chunk, progress)
 
 
-def _pad_queries(kp, vids, pad: int):
-    zeros = torch.zeros((pad,) + tuple(kp.shape[1:]), dtype=kp.dtype, device=kp.device)
-    fill = torch.full((pad,), PAD_QUERY_VIDEO, dtype=vids.dtype, device=vids.device)
-    return torch.cat([kp, zeros]), torch.cat([vids, fill])
+def _rows(axis, *tensors):
+    """This rank's equal share of each tensor's rows."""
+    n = tensors[0].shape[0] // axis.size
+    return [t[axis.index * n:(axis.index + 1) * n] for t in tensors]
+
+
+def make_sharded_topk_all(mesh, k: int, query_chunk: int, db_chunk: int):
+    """(q_kp, q_vids, q_ids, db, db_vids) -> (distances, indices) of every
+    query: each rank of ``mesh`` mines its share of the queries (their
+    count a multiple of ``query_chunk`` times the ranks) against the whole
+    database, which every rank holds, and the results are all-gathered."""
+
+    def run(q_kp, q_vids, q_ids, db, db_vids):
+        d, i = _topk_all_queries(*_rows(mesh, q_kp, q_vids, q_ids), db, db_vids, k,
+                                 query_chunk, db_chunk)
+        return mesh.gather_raw(d), mesh.gather_raw(i)
+
+    return run
+
+
+def _merge_block(q, qv, qi, blk, blk_vids, blk_ids, best_d, best_i, k: int, db_chunk: int):
+    """Merges one database block, with explicit global ids, into the running
+    top-k of the queries, ``db_chunk`` rows at a time as ``topk_similar``
+    does; pad rows carry id -1 and are masked with same-video and self."""
+    for lo in range(0, blk.shape[0], db_chunk):
+        cv, ci = blk_vids[lo:lo + db_chunk], blk_ids[lo:lo + db_chunk]
+        d = _chunk_distances(q, blk[lo:lo + db_chunk])
+        mask = (qv[:, None] == cv[None, :]) | (qi[:, None] == ci[None, :]) | (ci[None, :] < 0)
+        d.masked_fill_(mask, float("inf"))
+        best_d, best_i = _merge_topk(best_d, best_i, d, ci, k)
+    return best_d, best_i
+
+
+def make_ring_topk_all(mesh, k: int, query_chunk: int, db_chunk: int):
+    """(q_kp, q_vids, q_ids, db, db_vids, db_ids) -> (distances, indices) of
+    every query with the database split over ``mesh`` too: each rank holds
+    its share of the queries and one block of the database (the counts
+    multiples of ``query_chunk`` and ``db_chunk`` times the ranks), merges
+    every query chunk against the block it holds, then sends the block to
+    the next rank (``ppermute``); after as many rounds as ranks every query
+    has met the whole database. The results are all-gathered."""
+
+    def run(q_kp, q_vids, q_ids, db, db_vids, db_ids):
+        q_kp, q_vids, q_ids = _rows(mesh, q_kp, q_vids, q_ids)
+        blk, bv, bids = _rows(mesh, db, db_vids, db_ids)
+        starts = range(0, q_kp.shape[0], query_chunk)
+        best = [(torch.full((query_chunk, k), float("inf"), dtype=q_kp.dtype, device=q_kp.device),
+                 torch.full((query_chunk, k), -1, dtype=torch.int32, device=q_kp.device))
+                for _ in starts]
+        for _ in range(mesh.size):
+            best = [_merge_block(q_kp[lo:lo + query_chunk], q_vids[lo:lo + query_chunk],
+                                 q_ids[lo:lo + query_chunk], blk, bv, bids, *b, k, db_chunk)
+                    for lo, b in zip(starts, best)]
+            blk, bv, bids = mesh.ppermute(blk), mesh.ppermute(bv), mesh.ppermute(bids)
+        d = torch.cat([d for d, _ in best])
+        i = torch.cat([i for _, i in best])
+        return mesh.gather_raw(d), mesh.gather_raw(i)
+
+    return run
+
+
+def _pad(t: torch.Tensor, pad: int, value) -> torch.Tensor:
+    """t with ``pad`` rows of ``value`` after it."""
+    if not pad:
+        return t
+    return torch.cat([t, torch.full((pad,) + tuple(t.shape[1:]), value, dtype=t.dtype,
+                                    device=t.device)])
 
 
 def mine_similar_hands(
@@ -199,29 +276,44 @@ def mine_similar_hands(
     """Full-corpus mining: every hand paired with its k most similar hands
     from other videos, on ``device`` (the card unless the caller asks for
     the CPU). Returns (distances (N, k) float32, indices (N, k) int32) as
-    numpy arrays.
+    numpy arrays, on every rank of ``mesh``.
+
+    With a ``mesh`` the queries are split over its ranks and the database
+    is whole on each (``make_sharded_topk_all``), or split too with
+    ``shard_db`` (``make_ring_topk_all``). Pads: a query's video -3 (its
+    id counting on from N), a database row's video -2 and id -1.
 
     ``single_program`` is JAX's choice between one scanned program and a
     dispatch a query chunk. Eager PyTorch runs both the same way, one
     ``topk_similar`` a query chunk and one fetch at the end, so it only
     keeps the signature.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded mining (a mesh, make_sharded_topk_all, the shard_db ring) is not "
-            "ported yet: it comes with the next slice of the port, after the data-parallel "
-            "pre-training step; pass mesh=None")
-    if shard_db:
+    if shard_db and mesh is None:
         raise ValueError("shard_db=True requires a mesh")
     dev = resolve_device(device)
     N = keypoints.shape[0]
     kp = torch.from_numpy(np.ascontiguousarray(keypoints, np.float32)).to(dev)
     vids = torch.from_numpy(np.ascontiguousarray(video_ids, np.int32)).to(dev)
+    n_dev = 1 if mesh is None else mesh.size
 
-    pad = (-N) % query_chunk
-    kp_p, vids_p = _pad_queries(kp, vids, pad) if pad else (kp, vids)
-    d, i = topk_similar_all(kp_p, vids_p, kp, vids, k=k, query_chunk=query_chunk,
-                            db_chunk=db_chunk, progress=progress)
+    def ids(lo, hi):
+        return torch.arange(lo, hi, dtype=torch.int32, device=dev)
+
+    if shard_db:
+        qpad = (-N) % (query_chunk * n_dev)
+        dpad = (-N) % (db_chunk * n_dev)
+        fn = make_ring_topk_all(mesh, k, query_chunk, db_chunk)
+        d, i = fn(_pad(kp, qpad, 0.0), _pad(vids, qpad, PAD_QUERY_VIDEO), ids(0, N + qpad),
+                  _pad(kp, dpad, 0.0), _pad(vids, dpad, PAD_DB_VIDEO), _pad(ids(0, N), dpad, -1))
+    else:
+        pad = (-N) % (query_chunk * n_dev)
+        kp_p, vids_p = _pad(kp, pad, 0.0), _pad(vids, pad, PAD_QUERY_VIDEO)
+        if mesh is None:
+            d, i = topk_similar_all(kp_p, vids_p, kp, vids, k=k, query_chunk=query_chunk,
+                                    db_chunk=db_chunk, progress=progress)
+        else:
+            d, i = make_sharded_topk_all(mesh, k, query_chunk, db_chunk)(
+                kp_p, vids_p, ids(0, N + pad), kp, vids)
     return d[:N].cpu().numpy(), i[:N].cpu().numpy()
 
 

@@ -44,7 +44,9 @@ from simhand_tpu_torch.models.equivariance import (
     _l2_normalize,
     inverse_transform_projections,
 )
-from simhand_tpu_torch.models.layers import frozen_running_stats
+from simhand_tpu_torch.models.bn_epilogue import BNRelu
+from simhand_tpu_torch.models.fused_bn import FusedBatchNorm
+from simhand_tpu_torch.models.layers import _FlaxBatchNorm, frozen_running_stats
 from simhand_tpu_torch.models.projection import ProjectionHead
 from simhand_tpu_torch.models.resnet import FEATURE_DIMS, RESNETS
 
@@ -91,7 +93,8 @@ class ContrastiveModel(nn.Module):
     mode. ``bn_axis``, ``stem``, ``bn_fused``, ``bn_subsample``,
     ``bn_stop_gradient_stats``, ``conv1x1_fuse_min_cin`` and ``maxpool`` go
     to the encoder (``models/resnet.py``); the projection head's BatchNorm
-    stays exact and per-replica, as the reference's.
+    stays exact and per-replica, as the reference's, until
+    ``sync_batch_norms`` gives every BatchNorm an axis (the FSDP step).
 
     ``remat=True`` recomputes the encoder's activations in the backward
     (``torch.utils.checkpoint``, the reference's ``nn.remat``) when it
@@ -126,6 +129,22 @@ class ContrastiveModel(nn.Module):
     @property
     def feature_dim(self) -> int:
         return FEATURE_DIMS[self.resnet_size]
+
+    def sync_batch_norms(self, axis) -> None:
+        """Gives every BatchNorm of the model, the projection head's too,
+        cross-replica statistics over ``axis`` (None: per-replica again):
+        the global-batch BatchNorm of the FSDP step. The fused modes have no
+        cross-replica statistics and raise."""
+        fused = [m for m in self.modules() if isinstance(m, (FusedBatchNorm, BNRelu))]
+        if axis is not None and fused:
+            raise NotImplementedError(
+                f"{type(fused[0]).__name__} (bn_fused) over {axis.size} ranks: kernels #5-#9 "
+                "reduce their per-channel sums over this rank's rows only, and the "
+                "cross-replica reduce of those sums (a psum of #5's and #9's) is not "
+                "ported. Use the exact BatchNorm, bn_subsample or conv1x1_fuse_min_cin")
+        for m in self.modules():
+            if isinstance(m, _FlaxBatchNorm):
+                m.axis = axis
 
 
 def _remat_contexts():
@@ -192,6 +211,22 @@ def adaptive_weights(batch: dict, cfg: ContrastiveConfig, axis=None):
                              cfg.non_linear_lambda_neg, cfg.diff_type, axis, flat=flat)
 
 
+def kernel_route(cfg: ContrastiveConfig, n_rows: int, axis=None) -> bool:
+    """Whether ``contrastive_loss_from_projections`` takes the NT-Xent
+    kernels for ``n_rows`` local rows ([view1; view2]). On an axis their
+    backward gives each rank its rows' share of the global gradient, where
+    the dense route's collectives give W times it."""
+    if not cfg.use_pallas:
+        return False
+    weighted = cfg.experiment_type in _WEIGHTED
+    flagship = (cfg.weight_type, cfg.diff_type, cfg.pos_neg, cfg.use_pca) == _FLAGSHIP_WEIGHTS
+    if axis is None:
+        return n_rows % 512 == 0 and (not weighted or flagship)
+    if n_rows % 256:
+        return False
+    return flagship if weighted else (n_rows * axis.size) % 512 == 0
+
+
 def contrastive_loss_from_projections(projections: torch.Tensor, batch: dict,
                                       cfg: ContrastiveConfig, axis=None):
     """The per-step contrastive loss of any experiment type.
@@ -201,31 +236,25 @@ def contrastive_loss_from_projections(projections: torch.Tensor, batch: dict,
     Returns (loss, (z1, z2)).
     """
     z1, z2 = transformed_projections(projections, batch, cfg)
-    weights_cfg = (cfg.weight_type, cfg.diff_type, cfg.pos_neg, cfg.use_pca)
     n_rows = 2 * z1.shape[0]
 
-    if cfg.use_pallas and axis is not None and n_rows % 256 == 0:
-        if cfg.experiment_type not in _WEIGHTED and (n_rows * axis.size) % 512 == 0:
-            return make_sharded_nt_xent_kernel(axis, cfg.temperature)(z1, z2), (z1, z2)
-        if cfg.experiment_type in _WEIGHTED and weights_cfg == _FLAGSHIP_WEIGHTS:
+    if kernel_route(cfg, n_rows, axis):
+        if axis is not None:
+            if cfg.experiment_type not in _WEIGHTED:
+                return make_sharded_nt_xent_kernel(axis, cfg.temperature)(z1, z2), (z1, z2)
             loss_fn = make_sharded_weighted_nt_xent_kernel(axis, cfg.temperature)
             return loss_fn(z1, z2, *_joints(batch, cfg)), (z1, z2)
-        # other configurations take the dense route
-
-    if cfg.use_pallas and axis is None and n_rows % 512 == 0:
         if cfg.experiment_type not in _WEIGHTED:
             return nt_xent_kernel(z1, z2, cfg.temperature), (z1, z2)
-        if weights_cfg == _FLAGSHIP_WEIGHTS:
-            j1, j2 = _joints(batch, cfg)
-            pos_d = _pair_distance(j1, j2, "mpjpe")
-            # statistics as tensors on the device: no host synchronisation
-            d_min, d_max = pairwise_minmax(torch.cat([j1, j2]), "mpjpe")
-            pw = (pos_d.max() - pos_d) / (pos_d.max() - pos_d.min())
-            loss = weighted_nt_xent_kernel(
-                z1, z2, torch.cat([j1, j2]), pw, torch.stack([d_max, d_min]),
-                cfg.temperature)
-            return loss, (z1, z2)
-        # other weighted configurations take the dense route
+        j1, j2 = _joints(batch, cfg)
+        pos_d = _pair_distance(j1, j2, "mpjpe")
+        # statistics as tensors on the device: no host synchronisation
+        d_min, d_max = pairwise_minmax(torch.cat([j1, j2]), "mpjpe")
+        pw = (pos_d.max() - pos_d) / (pos_d.max() - pos_d.min())
+        loss = weighted_nt_xent_kernel(
+            z1, z2, torch.cat([j1, j2]), pw, torch.stack([d_max, d_min]), cfg.temperature)
+        return loss, (z1, z2)
+    # other configurations take the dense route
 
     if cfg.experiment_type in _WEIGHTED:
         pw, nw = adaptive_weights(batch, cfg, axis)

@@ -1,5 +1,7 @@
 """SimCLR projection head (counterpart of ``simhand_tpu/models/projection.py``):
-Linear -> BatchNorm -> ReLU -> Linear without bias, float32 output."""
+Linear -> BatchNorm -> ReLU -> Linear without bias, float32 output. Its
+BatchNorm is per-replica unless ``ContrastiveModel.sync_batch_norms`` gives
+it an axis (the FSDP step's global batch)."""
 from __future__ import annotations
 
 import torch

@@ -12,6 +12,10 @@ does under ``shard_map(check_vma=False)``:
   * ``all_gather(x)`` is tiled on dim 0; its backward sums the cotangent
     over the ranks and keeps this rank's rows (``psum_scatter``);
   * ``psum(x)``'s backward is ``psum`` and ``pmean(x)``'s is ``pmean``;
+  * ``psum_scatter(x)`` (the ranks' sum of x, split on dim 0 in rank
+    order, this rank's part kept) has ``all_gather`` as its backward;
+  * ``ppermute(x)`` sends x to rank ``(index + 1) % size`` and returns what
+    rank ``index - 1`` sent; its backward is the inverse permutation;
   * ``pmin``, ``pmax`` and ``broadcast`` carry no gradient.
 
 So a rank's backward through a loss that every rank computes whole gives
@@ -19,10 +23,15 @@ the gradient of the sum of the ranks' losses: W times the global gradient
 where the loss is the same on every rank (the dense losses' behaviour in
 both packages).
 
-``ProcessGroupAxis`` runs them over the default ``torch.distributed``
-group. Production runs one process a GPU under NCCL, launched with the
-``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
-``MASTER_PORT`` that torchrun sets (``init_distributed``).
+``ProcessGroupAxis`` runs them over a ``torch.distributed`` group: the
+default one, or a sub-axis of it (``create_hybrid_mesh``). Production runs
+one process a GPU under NCCL, launched with the ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` that torchrun sets
+(``init_distributed``). Under gloo, the point-to-point exchange of a CUDA
+tensor (``ppermute``) goes through the host: the axis copies it to the
+CPU, sends and receives there, copies the result back and records it in
+``staged``. Gloo's send of a CUDA tensor fails in torch 2.11 ("Bad
+address"); it takes CUDA tensors for the collectives.
 """
 from __future__ import annotations
 
@@ -62,10 +71,33 @@ class _PSum(torch.autograd.Function):
         return ctx.axis.reduce_raw(g.contiguous(), "sum"), None
 
 
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return axis.scatter_raw(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.gather_raw(g.contiguous()), None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, shift):
+        ctx.axis, ctx.shift = axis, shift
+        return axis.permute_raw(x, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.permute_raw(g.contiguous(), -ctx.shift), None, None
+
+
 class Axis:
     """A data-parallel axis: ``index`` of ``size`` ranks. Subclasses give
-    the raw collectives (``gather_raw``, ``reduce_raw``, ``broadcast_raw``),
-    which take no part in autograd; the methods here add JAX's transposes.
+    the raw collectives (``gather_raw``, ``reduce_raw``, ``broadcast_raw``,
+    ``scatter_raw``, ``permute_raw``), which take no part in autograd; the
+    methods here add JAX's transposes.
     An axis is shared, never copied: a deep copy of a model keeps its axis.
     """
 
@@ -84,6 +116,22 @@ class Axis:
     def broadcast_raw(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         raise NotImplementedError
 
+    def scatter_raw(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' sum of x (size * m rows), this rank's rows
+        ``[index m, (index + 1) m)``."""
+        raise NotImplementedError
+
+    def permute_raw(self, x: torch.Tensor, shift: int = 1) -> torch.Tensor:
+        """x sent to rank ``(index + shift) % size``; returns what rank
+        ``(index - shift) % size`` sent."""
+        raise NotImplementedError
+
+    def split(self, groups: list) -> "Axis":
+        """The sub-axis of this rank, ``groups`` being every sub-axis's
+        members (indices of this axis, in the sub-axis's order); every rank
+        passes the same ``groups``."""
+        raise NotImplementedError
+
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """The ranks' x concatenated on dim 0, in rank order."""
         return _AllGather.apply(x.contiguous(), self)
@@ -93,6 +141,14 @@ class Axis:
 
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
         return self.psum(x) / self.size
+
+    def psum_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """JAX's ``psum_scatter(x, tiled=True)`` on dim 0."""
+        return _PSumScatter.apply(x.contiguous(), self)
+
+    def ppermute(self, x: torch.Tensor) -> torch.Tensor:
+        """JAX's ``ppermute`` with the ring ``[(i, (i + 1) % size)]``."""
+        return _PPermute.apply(x.contiguous(), self, 1)
 
     def pmin(self, x: torch.Tensor) -> torch.Tensor:
         return self.reduce_raw(x.detach().contiguous(), "min")
@@ -115,33 +171,80 @@ _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp
 
 
 class ProcessGroupAxis(Axis):
-    """The axis over the default ``torch.distributed`` process group, with
-    a gloo group beside it for host-side flags where the default group is
-    NCCL (which takes only CUDA tensors)."""
+    """The axis over a ``torch.distributed`` group (the default one when
+    ``group`` is None; ``ranks`` are its members' global ranks in the
+    group's order), with a gloo group beside the default one for host-side
+    flags where that is NCCL (which takes only CUDA tensors).
+    ``staged`` names the collectives this axis has run through the host."""
 
-    def __init__(self):
+    def __init__(self, group=None, ranks=None):
         if not dist.is_initialized():
             raise RuntimeError("no torch.distributed process group: call "
                                "init_distributed (or init_process_group) first")
-        self.index, self.size = dist.get_rank(), dist.get_world_size()
-        self._host = None if dist.get_backend() == "gloo" else dist.new_group(backend="gloo")
+        self.group = group
+        self.index, self.size = dist.get_rank(group), dist.get_world_size(group)
+        self.ranks = list(range(dist.get_world_size())) if ranks is None else list(ranks)
+        self._gloo = dist.get_backend(group) == "gloo"
+        self._host = None if group is not None or self._gloo else dist.new_group(backend="gloo")
+        self.staged = set()
 
     def gather_raw(self, x):
         parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x.contiguous())
+        dist.all_gather(parts, x.contiguous(), group=self.group)
         return torch.cat(parts)
 
     def reduce_raw(self, x, op):
         t = x.clone()
-        dist.all_reduce(t, _OPS[op])
+        dist.all_reduce(t, _OPS[op], group=self.group)
         return t
 
     def broadcast_raw(self, x, src=0):
         t = x.clone()
-        dist.broadcast(t, src)
+        dist.broadcast(t, self.ranks[src], group=self.group)
         return t
 
+    def scatter_raw(self, x):
+        if self.size == 1:
+            return x.clone()
+        out = x.new_empty((x.shape[0] // self.size, *x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x.contiguous(), group=self.group)
+        return out
+
+    def permute_raw(self, x, shift=1):
+        # an NCCL send to this rank itself inside one group deadlocks
+        if self.size == 1 or shift % self.size == 0:
+            return x.clone()
+        staged = self._gloo and x.is_cuda
+        if staged:
+            self.staged.add("ppermute")
+        t = x.cpu() if staged else x.contiguous()
+        out = torch.empty_like(t)
+        dst = self.ranks[(self.index + shift) % self.size]
+        src = self.ranks[(self.index - shift) % self.size]
+        ops = [dist.P2POp(dist.isend, t, dst, self.group),
+               dist.P2POp(dist.irecv, out, src, self.group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return out.to(x.device) if staged else out
+
+    def split(self, groups):
+        for members in groups:
+            # every rank creates every group, in the same order
+            ranks = [self.ranks[i] for i in members]
+            group = dist.new_group(ranks)
+            if self.index in members:
+                mine = ProcessGroupAxis(group, ranks)
+        return mine
+
+    def barrier(self, timeout_s: float) -> None:
+        """Waits until every rank is here; fails after ``timeout_s`` (over
+        gloo, the host group beside NCCL)."""
+        dist.monitored_barrier(self._host if self._host is not None else self.group,
+                               timeout=datetime.timedelta(seconds=timeout_s))
+
     def any_rank(self, flag):
+        if self.group is not None:
+            return super().any_rank(flag)
         t = torch.tensor([int(flag)], dtype=torch.int32)
         dist.all_reduce(t, dist.ReduceOp.MAX, group=self._host)
         return bool(t)
@@ -185,8 +288,9 @@ def shard_batch(axis: Axis, batch: dict) -> dict:
 def replicate(axis: Axis, state):
     """Rank 0's model (parameters and buffers) and optimizer moments on
     every rank, in place; returns the state."""
+    opt = state.optimizer
     tensors = [*state.model.parameters(), *state.model.buffers(),
-               *state.optimizer.mu, *state.optimizer.nu, *(state.optimizer.acc or ())]
+               *opt.mu, *opt.nu, *(getattr(opt, "acc", None) or ())]
     for t in tensors:
         t.copy_(axis.broadcast(t))
     return state

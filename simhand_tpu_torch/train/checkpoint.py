@@ -10,6 +10,12 @@ reads. Each save is written under a temporary name in the same directory
 and then ``os.replace``d into place, so a save cut short never leaves a
 half checkpoint.
 
+The file does not depend on the layout: an FSDP state's ``payload``
+gathers whole tensors, and its ``load_payload`` keeps this rank's pieces,
+so a replicated run's checkpoint restores under FSDP and back. In a run of
+several ranks one rank calls ``save`` and every other calls the state's
+``payload`` at the same point (an FSDP state's gather takes every rank).
+
 The retention is orbax's with ``max_to_keep=max(save_top_k, 1)``,
 ``best_fn=metric`` and ``best_mode="min"``: a save of a step at or below
 the latest saved step is skipped; after each save the checkpoints are
@@ -54,7 +60,10 @@ class CheckpointManager:
 
     def save(self, step: int, state, metrics: dict[str, float]) -> bool:
         """Writes ``state`` (a ``TrainState``) as checkpoint ``step``; returns
-        False, writing nothing, when ``step`` is not past the latest one."""
+        False, writing nothing, when ``step`` is not past the latest one.
+        The state's ``payload`` is taken first, whether or not it is
+        written."""
+        tensors = state.payload()
         latest = self.latest_step()
         if latest is not None and step <= latest:
             logger.info("not saving step %d: checkpoint %d exists at %s",
@@ -63,9 +72,7 @@ class CheckpointManager:
         value = float(metrics[self.metric])
         logger.info("Saving checkpoint at %s (step %d, %s=%.6f)",
                     self.directory, step, self.metric, value)
-        payload = {"model": state.model.state_dict(),
-                   "optimizer": state.optimizer.state_dict(),
-                   "step": int(state.step), "metrics": {self.metric: value}}
+        payload = {**tensors, "step": int(state.step), "metrics": {self.metric: value}}
         tmp = tempfile.mkdtemp(prefix=f".{step}.", dir=self.directory)
         try:
             torch.save(payload, os.path.join(tmp, STATE_FILE))
@@ -102,8 +109,7 @@ class CheckpointManager:
         saved = self.restore_tree(step, map_location=device)
         if saved is None:
             return None
-        state.model.load_state_dict(saved["model"], strict=True)
-        state.optimizer.load_state_dict(saved["optimizer"])
+        state.load_payload(saved)
         state.step = int(saved["step"])
         return state
 

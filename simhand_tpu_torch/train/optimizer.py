@@ -178,6 +178,20 @@ class Optimizer:
         self.nu = [torch.zeros_like(p) for p in params]
         self.acc = ([torch.zeros_like(p) for p in params]
                     if cfg.accumulate_grad_batches > 1 else None)
+        # FSDP: the axis whose ranks hold the pieces of each ``sharded`` leaf
+        self.norm_axis, self.sharded = None, None
+
+    def shard_norms(self, axis, sharded: list[bool]) -> None:
+        """The parameters are this rank's pieces of whole leaves where
+        ``sharded`` is set: LARS takes those leaves' norms over ``axis``
+        (sqrt of the psum of the squared piece norms)."""
+        self.norm_axis, self.sharded = axis, list(sharded)
+
+    def _global_norms(self, p_norm, g_norm):
+        mask = torch.tensor(self.sharded, device=p_norm.device)
+        sq = torch.where(mask, torch.stack([p_norm, g_norm]).square(), 0.0)
+        whole = self.norm_axis.reduce_raw(sq, "sum").sqrt()
+        return torch.where(mask, whole[0], p_norm), torch.where(mask, whole[1], g_norm)
 
     def state_dict(self) -> dict:
         """The moments, the accumulator and the two counters (the chain's
@@ -222,6 +236,8 @@ class Optimizer:
         wd = torch.tensor(self.decay, dtype=torch.float32, device=params[0].device)
         p_norm = torch.stack(torch._foreach_norm(params))
         g_norm = torch.stack(torch._foreach_norm(grads))
+        if self.norm_axis is not None:
+            p_norm, g_norm = self._global_norms(p_norm, g_norm)
         trust = (cfg.lars_eta * p_norm) / (g_norm + p_norm * wd + cfg.lars_eps)
         if cfg.lars_clip:
             # lr == 0 at the first warmup step: x / 0 = inf, clipped to 1

@@ -25,6 +25,16 @@ class TrainState:
     def params(self) -> list[torch.Tensor]:
         return list(self.model.parameters())
 
+    def payload(self) -> dict:
+        """A checkpoint's tensors: the model's state dict and the
+        optimizer's state (whole tensors in any layout)."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()}
+
+    def load_payload(self, saved: dict) -> None:
+        """Copies a checkpoint's tensors (of ``payload``) into this state."""
+        self.model.load_state_dict(saved["model"], strict=True)
+        self.optimizer.load_state_dict(saved["optimizer"])
+
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:

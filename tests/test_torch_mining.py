@@ -256,9 +256,20 @@ def test_extract_frames_main_equals_jax_on_three_manifest_formats(tmp_path):
 
 
 def test_a_mesh_is_refused_and_shard_db_needs_one():
+    """Sharded mining is ported (tests/test_torch_sharded_mining.py holds it
+    against JAX's): a mesh is no longer refused, and a one-rank mesh gives
+    one device's result in each mode; shard_db without a mesh raises in both
+    packages."""
+    from torch_thread_axis import ThreadAxis, ThreadGroup
+
     kp, vids = _corpus(0, 16, 4)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        psh.mine_similar_hands(kp, vids, mesh=object(), device="cpu")
+    want = psh.mine_similar_hands(kp, vids, query_chunk=4, db_chunk=8, device="cpu")
+    for single, ring in ((True, False), (False, False), (True, True)):
+        got = psh.mine_similar_hands(kp, vids, query_chunk=4, db_chunk=8, device="cpu",
+                                     mesh=ThreadAxis(ThreadGroup(1), 0),
+                                     single_program=single, shard_db=ring)
+        _assert_bits_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
     with pytest.raises(ValueError, match="requires a mesh"):
         psh.mine_similar_hands(kp, vids, shard_db=True, device="cpu")
     with pytest.raises(ValueError, match="requires a mesh"):

@@ -21,9 +21,25 @@ class ThreadGroup:
     """Where the ranks of one run exchange their tensors."""
 
     def __init__(self, size: int, timeout: float = 120.0):
-        self.size = size
+        self.size, self.timeout = size, timeout
         self.barrier = threading.Barrier(size, timeout=timeout)
         self._slots = [None] * size
+        self._subgroups, self._lock = {}, threading.Lock()
+
+    def subgroup(self, members: tuple) -> "ThreadGroup":
+        """The one group of the ranks ``members``, shared by their threads."""
+        with self._lock:
+            if members not in self._subgroups:
+                self._subgroups[members] = ThreadGroup(len(members), self.timeout)
+            return self._subgroups[members]
+
+    def abort(self) -> None:
+        """Breaks this group's barrier and its subgroups': a rank that
+        failed releases every rank waiting for it."""
+        self.barrier.abort()
+        with self._lock:
+            for sub in self._subgroups.values():
+                sub.abort()
 
     def exchange(self, index: int, x: torch.Tensor) -> list:
         """Every rank's x, in rank order, once every rank has given its own."""
@@ -50,6 +66,17 @@ class ThreadAxis(Axis):
     def broadcast_raw(self, x, src=0):
         return self.group.exchange(self.index, x)[src].clone()
 
+    def scatter_raw(self, x):
+        m = x.shape[0] // self.size
+        return self.reduce_raw(x, "sum")[self.index * m:(self.index + 1) * m].clone()
+
+    def permute_raw(self, x, shift=1):
+        return self.group.exchange(self.index, x)[(self.index - shift) % self.size].clone()
+
+    def split(self, groups):
+        members = next(tuple(g) for g in groups if self.index in g)
+        return ThreadAxis(self.group.subgroup(members), members.index(self.index))
+
 
 def run_ranks(size: int, fn, timeout: float = 300.0) -> list:
     """fn(axis) on ``size`` threads, one a rank; their results in rank
@@ -63,7 +90,7 @@ def run_ranks(size: int, fn, timeout: float = 300.0) -> list:
             results[i] = fn(ThreadAxis(group, i))
         except BaseException as exc:  # reported below, after every thread ends
             errors[i] = exc
-            group.barrier.abort()
+            group.abort()
 
     threads = [threading.Thread(target=target, args=(i,), daemon=True) for i in range(size)]
     for t in threads:
@@ -71,7 +98,7 @@ def run_ranks(size: int, fn, timeout: float = 300.0) -> list:
     for t in threads:
         t.join(timeout)
     if any(t.is_alive() for t in threads):
-        group.barrier.abort()
+        group.abort()
         raise TimeoutError(f"ranks still running after {timeout} s")
     first = [e for e in errors if e is not None and not isinstance(e, threading.BrokenBarrierError)]
     if first or any(errors):
