@@ -283,7 +283,17 @@
    (0.1 x the gradient) within 0.25 of its norm; 2 steps with LARS
    unclipped, mu and nu within FSDP_F32_LARS_RTOL of their norms, which a
    control run (the split leaves' gradient norms of the pieces alone) must
-   exceed); the data-parallel detnet step
+   exceed); FSDP through the fused BatchNorm modes bn_fused="pallas" and
+   "epilogue" (at world size 1 each also bit for bit one device's step with
+   the same mode over 2 steps): 2 bf16 steps with #9 53 times, or #5/#6 33
+   and #7/#8 16 times, a rank a step on the rank's rows, each launch's sums
+   (#5, #7, #9) within rel 1e-5 of its plain version, the forward's and the
+   backward's per-channel sums all-reduced once a site each; 2 timed steps
+   and the BatchNorms' all-reduces replayed alone (their share of the
+   step); one float32 step against one process's step with the same mode:
+   the loss within rel 1e-5 and mu within 0.25, which a per-replica control
+   (every BatchNorm on its rank's rows, no reduce) must exceed in mu; the
+   data-parallel detnet step
    (ResNet-50 DetNet, 128x128, bf16, 128 images, fused_pallas: #9 53 times
    a rank a step, each launch's sums within rel 1e-5 of its plain
    version; 3 steps and 3 timed; one float32 step against the per-replica
@@ -4029,6 +4039,17 @@ FSDP_LOSS_RTOL = 1e-3
 # finite only: it reads the gradient's signs, which rounding flips
 FSDP_F32_LOSS_RTOL, FSDP_F32_MU_RTOL, FSDP_F32_STEPS = 1e-5, 0.25, 2
 FSDP_F32_LARS_RTOL = 0.1
+# FSDP through the fused BatchNorm modes: each rank's kernels #5-#9 on its
+# rows, their per-channel sums all-reduced over the ranks (one collective a
+# site forward, one backward); FSDP_FUSED_STEPS checked steps (every
+# reduce's sums against its plain version, the BN kernel phase's limit) and
+# FSDP_FUSED_TIMED timed ones a mode; float32 at FSDP_F32_LOSS_RTOL and
+# FSDP_F32_MU_RTOL against one process, a per-replica control above the mu
+# limit
+FSDP_FUSED, FSDP_FUSED_STEPS, FSDP_FUSED_TIMED = ("pallas", "epilogue"), 2, 2
+FSDP_FUSED_PER_STEP = {"pallas": {"bn_backward_reduces": FUSED_BN_PER_STEP},
+                       "epilogue": BN_PER_STEP}
+FSDP_SUMS_RTOL = 1e-5
 DET_BATCH, DET_STEPS, DET_TIMED = 128, 3, 3
 # #9 against its plain version at each launch (phase 17's limit); the
 # float32 step's parts against the per-replica oracle (the same function:
@@ -4143,6 +4164,17 @@ def _f32_run(state, step, batch: dict, steps: int) -> dict:
             "dp": [a - b for a, b in zip(after, before)]}
 
 
+def run_rel(key: str, a: dict, b: dict) -> float:
+    """The distance of run a's tensors ``key`` from run b's (``_f32_run``
+    records) relative to b's norm, over all tensors but
+    projection_head.fc1.bias (it feeds a train-mode BatchNorm: its gradient
+    is 0 up to rounding)."""
+    held = [(x, y) for n, x, y in zip(a["names"], a[key], b[key])
+            if n != "projection_head.fc1.bias"]
+    return (sum(float((x - y).double().square().sum()) for x, y in held)
+            / sum(float(y.double().square().sum()) for _, y in held)) ** 0.5
+
+
 def _fsdp_f32(axis, seed: int, cfg, batch: dict, local: dict) -> dict | None:
     """FSDP in float32 against one process's step in the two settings of
     FSDP_F32_*; the record on rank 0, None on the others."""
@@ -4185,22 +4217,16 @@ def _fsdp_f32(axis, seed: int, cfg, batch: dict, local: dict) -> dict | None:
     want = {"a": single(1), "b": single(FSDP_F32_STEPS, unclipped)}
     floor = {"a": single(1, reverse=True), "b": single(FSDP_F32_STEPS, unclipped, reverse=True)}
 
-    def rel(key, a, b):
-        held = [(x, y) for n, x, y in zip(a["names"], a[key], b[key])
-                if n != "projection_head.fc1.bias"]
-        return (sum(float((x - y).double().square().sum()) for x, y in held)
-                / sum(float(y.double().square().sum()) for _, y in held)) ** 0.5
-
     loss_rel = max(abs(x / y - 1) for k in want
                    for x, y in zip(got[k]["losses"], want[k]["losses"]))
     rec = {"losses": {k: got[k]["losses"] for k in got},
            "single_losses": {k: want[k]["losses"] for k in want}, "loss_rel": loss_rel,
-           "a_mu0_rel": rel("mu0", got["a"], want["a"]),
-           "a_mu0_floor": rel("mu0", floor["a"], want["a"])}
+           "a_mu0_rel": run_rel("mu0", got["a"], want["a"]),
+           "a_mu0_floor": run_rel("mu0", floor["a"], want["a"])}
     for key in ("mu", "nu", "dp"):
-        rec[f"b_{key}_rel"] = rel(key, got["b"], want["b"])
-        rec[f"b_{key}_floor"] = rel(key, floor["b"], want["b"])
-        rec[f"b_{key}_control"] = rel(key, got["control"], want["b"])
+        rec[f"b_{key}_rel"] = run_rel(key, got["b"], want["b"])
+        rec[f"b_{key}_floor"] = run_rel(key, floor["b"], want["b"])
+        rec[f"b_{key}_control"] = run_rel(key, got["control"], want["b"])
     require(loss_rel <= FSDP_F32_LOSS_RTOL, f"float32 FSDP losses {rec['losses']} against "
             f"one process's {rec['single_losses']}")
     require(rec["a_mu0_rel"] <= FSDP_F32_MU_RTOL,
@@ -4215,6 +4241,128 @@ def _fsdp_f32(axis, seed: int, cfg, batch: dict, local: dict) -> dict | None:
             f"the control (piece gradient norms) departs only {rec['b_mu_control']} in mu: "
             f"the check at {FSDP_F32_LARS_RTOL} cannot tell it (floor {rec['b_mu_floor']})")
     return rec
+
+
+def _plain_reduce(name: str, planes, consts):
+    """The plain version of the reduce ``name`` (#5, #7 or #9) on the planes
+    and constants of its launch: (sum dy, sum dy*xhat)."""
+    from simhand_tpu_torch.models import bn_epilogue as E
+    from simhand_tpu_torch.models import fused_bn as FB
+
+    if name == "dual_reduce":
+        return FB.bn_backward_reduces_plain(planes[1], planes[0], consts["mu"], consts["inv"])
+    if name == "masked_dual_reduce":
+        return E.masked_dual_reduce_plain(*planes, **consts)
+    return E.masked_dual_reduce_res_plain(*planes, **consts)[:2]
+
+
+def _fsdp_fused_arm(axis, seed: int) -> dict:
+    """FSDP through each fused BatchNorm mode of FSDP_FUSED on this rank:
+    launches a step, each reduce's sums against its plain version, ms/step
+    and the BatchNorms' all-reduces alone, float32 against one process and
+    the per-replica control (on rank 0; None on the others)."""
+    import torch
+
+    from simhand_tpu_torch.models import bn_epilogue as E
+    from simhand_tpu_torch.models import fused_bn as FB
+    from simhand_tpu_torch.parallel import make_fsdp_train_step
+    from simhand_tpu_torch.train import make_train_step
+
+    rank, cfg, batch = axis.index, step_config(), synthetic_batch(seed)
+    kernels = (*E.KERNELS, *FB.KERNELS)
+    real_reduce, real_stats, real_sums = E._reduce, E.batch_stats, E.global_sums
+    out = {}
+    for bn_fused in FSDP_FUSED:
+        state = new_state(seed, bn_fused=bn_fused)
+        step, place_state, place_batch = make_fsdp_train_step(state.model, cfg, axis, state)
+        state, local = place_state(state), place_batch(batch)
+        errs, sizes = [], []
+
+        def checked(name, planes, consts, *more_outs):
+            got = real_reduce(name, planes, consts, *more_outs)
+            want = _plain_reduce(name, planes, consts)
+            errs.append(max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                            for a, b in zip(got, want)))
+            return got
+
+        # the fused sites' all-reduces: the forward's statistics and the
+        # backward's sums, C channels each
+        def stats(x, eps, axis=None):
+            sizes.append(x.shape[1])
+            return real_stats(x, eps, axis)
+
+        def sums(axis, sum_dy, sum_dyx):
+            sizes.append(sum_dy.shape[0])
+            return real_sums(axis, sum_dy, sum_dyx)
+
+        E._reduce, E.batch_stats, E.global_sums = checked, stats, sums
+        for fn in kernels:
+            fn.launches = 0
+        losses = []
+        try:
+            for _ in range(FSDP_FUSED_STEPS):
+                state, metrics = step(state, local)
+                losses.append(float(metrics["contrastive_loss"]))
+        finally:
+            E._reduce, E.batch_stats, E.global_sums = real_reduce, real_stats, real_sums
+        launches = {fn.__name__: fn.launches // FSDP_FUSED_STEPS for fn in kernels}
+        want = {k: FSDP_FUSED_PER_STEP[bn_fused].get(k, 0) for k in launches}
+        rec = {"losses": losses, "launches": launches, "sums_rel": max(errs),
+               "reduces": len(errs) // FSDP_FUSED_STEPS,
+               "bn_allreduces": len(sizes) // FSDP_FUSED_STEPS}
+        require(all(math.isfinite(v) for v in losses), f"rank {rank} FSDP {bn_fused} {losses}")
+        require(launches == want, f"rank {rank}: FSDP {bn_fused} launches a step {launches}, "
+                f"not {want}")
+        require(rec["sums_rel"] <= FSDP_SUMS_RTOL, f"rank {rank}: FSDP {bn_fused} sums against "
+                f"their plain versions {rec['sums_rel']}")
+        require(rec["bn_allreduces"] == 2 * rec["reduces"], f"rank {rank}: FSDP {bn_fused} "
+                f"all-reduced {rec['bn_allreduces']} times a step over {rec['reduces']} sites")
+        state, _, dt = timed(step, state, local, FSDP_FUSED_TIMED)
+        rec["step_ms"] = dt * 1e3
+        # the same all-reduces alone, in the step's order
+        bufs = [torch.zeros(2, c, device=state.shards[0].device)
+                for c in sizes[:rec["bn_allreduces"]]]
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in bufs:
+                axis.reduce_raw(b, "sum")
+            torch.cuda.synchronize()
+        rec["bn_allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["bn_allreduce_share"] = rec["bn_allreduce_ms"] / rec["step_ms"]
+        del state, step, bufs
+        torch.cuda.empty_cache()
+
+        # float32: one step against one process's, and the per-replica control
+        def f32(per_replica):
+            st = new_state(seed, torch.float32, bn_fused=bn_fused)
+            st_step, st_place, _ = make_fsdp_train_step(st.model, cfg, axis, st)
+            if per_replica:
+                st.model.sync_batch_norms(None)
+            run = _f32_run(st_place(st), st_step, local, 1)
+            torch.cuda.empty_cache()
+            return run
+
+        got, control = f32(False), f32(True)
+        if rank == 0:
+            single = new_state(seed, torch.float32, bn_fused=bn_fused)
+            one = _f32_run(single, make_train_step(single.model, cfg), batch, 1)
+            del single
+            torch.cuda.empty_cache()
+            rec["f32"] = {"loss": got["losses"][0], "single_loss": one["losses"][0],
+                          "loss_rel": abs(got["losses"][0] / one["losses"][0] - 1),
+                          "mu_rel": run_rel("mu0", got, one), "control_loss_rel":
+                          abs(control["losses"][0] / one["losses"][0] - 1),
+                          "control_mu_rel": run_rel("mu0", control, one)}
+            f = rec["f32"]
+            require(f["loss_rel"] <= FSDP_F32_LOSS_RTOL and f["mu_rel"] <= FSDP_F32_MU_RTOL,
+                    f"float32 FSDP {bn_fused} against one process: {f}")
+            require(f["control_mu_rel"] > FSDP_F32_MU_RTOL, f"the per-replica control of "
+                    f"FSDP {bn_fused} departs only {f['control_mu_rel']} in mu: the check at "
+                    f"{FSDP_F32_MU_RTOL} cannot tell it")
+        del got, control
+        out[bn_fused] = rec
+    return out
 
 
 def _det_batch(seed: int) -> dict:
@@ -4430,10 +4578,13 @@ def _sharded_rank(seed: int, rank: int, port: int) -> dict:
     t0 = time.perf_counter()
     out["fsdp"] = _fsdp_arm(axis, seed)
     t1 = time.perf_counter()
-    out["detnet"] = _detnet_arm(axis, seed)
+    out["fsdp_fused"] = _fsdp_fused_arm(axis, seed)
     t2 = time.perf_counter()
+    out["detnet"] = _detnet_arm(axis, seed)
+    t3 = time.perf_counter()
     out["mining"] = _mining_arm(axis, seed)
-    out["arm_s"] = {"fsdp": t1 - t0, "detnet": t2 - t1, "mining": time.perf_counter() - t2}
+    out["arm_s"] = {"fsdp": t1 - t0, "fsdp_fused": t2 - t1, "detnet": t3 - t2,
+                    "mining": time.perf_counter() - t3}
     out["staged"] = sorted(axis.staged)
     dist.destroy_process_group()
     return out
@@ -4442,7 +4593,7 @@ def _sharded_rank(seed: int, rank: int, port: int) -> dict:
 def _sharded_world1(seed: int, port: int) -> dict:
     """The NCCL group at world size 1: the FSDP step against the
     single-device step, bit for bit (one rank shards nothing and has no
-    axis)."""
+    axis), with the exact BatchNorm and with each mode of FSDP_FUSED."""
     import datetime
 
     import torch
@@ -4456,26 +4607,33 @@ def _sharded_world1(seed: int, port: int) -> dict:
                             device_id=torch.device("cuda", 0))
     axis = create_mesh()
     cfg, batch = step_config(), synthetic_batch(seed)
-    single, fsdp = new_state(seed), new_state(seed)
-    single_step = make_train_step(single.model, cfg)
-    fsdp_step, place_state, place_batch = make_fsdp_train_step(fsdp.model, cfg, axis, fsdp)
-    fsdp, local = place_state(fsdp), place_batch(batch)
-    losses = {"single": [], "fsdp": []}
-    for _ in range(SH_W1_STEPS):
-        single, m = single_step(single, batch)
-        losses["single"].append(float(m["contrastive_loss"]))
-        fsdp, m = fsdp_step(fsdp, local)
-        losses["fsdp"].append(float(m["contrastive_loss"]))
-    want, got = single.payload(), fsdp.payload()
-    differ = [k for k in want["model"] if not torch.equal(want["model"][k], got["model"][k])]
-    differ += [f"mu{j}" for j, (a, b) in enumerate(zip(want["optimizer"]["mu"],
-                                                       got["optimizer"]["mu"]))
-               if not torch.equal(a, b)]
+    out = {}
+    for bn_fused in (False, *FSDP_FUSED):
+        single, fsdp = new_state(seed, bn_fused=bn_fused), new_state(seed, bn_fused=bn_fused)
+        single_step = make_train_step(single.model, cfg)
+        fsdp_step, place_state, place_batch = make_fsdp_train_step(fsdp.model, cfg, axis, fsdp)
+        fsdp, local = place_state(fsdp), place_batch(batch)
+        losses = {"single": [], "fsdp": []}
+        for _ in range(SH_W1_STEPS):
+            single, m = single_step(single, batch)
+            losses["single"].append(float(m["contrastive_loss"]))
+            fsdp, m = fsdp_step(fsdp, local)
+            losses["fsdp"].append(float(m["contrastive_loss"]))
+        want, got = single.payload(), fsdp.payload()
+        differ = [k for k in want["model"] if not torch.equal(want["model"][k], got["model"][k])]
+        differ += [f"mu{j}" for j, (a, b) in enumerate(zip(want["optimizer"]["mu"],
+                                                           got["optimizer"]["mu"]))
+                   if not torch.equal(a, b)]
+        require(losses["single"] == losses["fsdp"],
+                f"NCCL world 1 FSDP (bn_fused={bn_fused}) losses {losses}")
+        require(not differ, f"NCCL world 1 FSDP (bn_fused={bn_fused}): {len(differ)} tensors "
+                f"differ, e.g. {differ[:3]}")
+        out[str(bn_fused)] = {"losses": losses["fsdp"],
+                              "tensors_equal": len(want["model"]) + len(want["optimizer"]["mu"])}
+        del single, fsdp, single_step, fsdp_step, want, got
+        torch.cuda.empty_cache()
     dist.destroy_process_group()
-    require(losses["single"] == losses["fsdp"], f"NCCL world 1 FSDP losses {losses}")
-    require(not differ, f"NCCL world 1 FSDP: {len(differ)} tensors differ, e.g. {differ[:3]}")
-    return {"losses": losses["fsdp"],
-            "tensors_equal": len(want["model"]) + len(want["optimizer"]["mu"])}
+    return out
 
 
 def sharded_phase(seed: int) -> tuple[dict, dict]:
@@ -4493,9 +4651,11 @@ def sharded_phase(seed: int) -> tuple[dict, dict]:
                     "--dp-out", str(work / "world1.json"), *common]], deadline)
     world1 = json.loads((work / "world1.json").read_text())
     w1_s = time.perf_counter() - t0
-    print(f"NCCL world 1: the FSDP step == the single-device step bit for bit over "
-          f"{SH_W1_STEPS} steps (losses {world1['losses']}, {world1['tensors_equal']} "
-          f"tensors and moments); {w1_s:.1f} s")
+    for mode, w in world1.items():
+        print(f"NCCL world 1, bn_fused={mode}: the FSDP step == the single-device step bit for "
+              f"bit over {SH_W1_STEPS} steps (losses {w['losses']}, {w['tensors_equal']} "
+              f"tensors and moments)")
+    print(f"NCCL world 1: {w1_s:.1f} s")
     t1 = time.perf_counter()
     port = _free_port()
     logs = _run_children([["--dp-role", "sharded_rank", "--dp-rank", str(r), "--dp-port",
@@ -4514,6 +4674,14 @@ def sharded_phase(seed: int) -> tuple[dict, dict]:
           f"reduce-scatter {f['reduce_scatter_ms']:.2f} ms of the {f['split_mb']:.1f} MB of "
           f"split leaves over gloo; #10 under FSDP {f['conv1x1']}")
     print(f"FSDP float32 against one process: {f['f32']}")
+    for mode, g in r0["fsdp_fused"].items():
+        print(f"FSDP bn_fused={mode!r} on {SH_WORLD} ranks: losses {g['losses']}; launches a "
+              f"rank a step {[r['fsdp_fused'][mode]['launches'] for r in ranks]}, worst sums "
+              f"rel {max(r['fsdp_fused'][mode]['sums_rel'] for r in ranks):.2e} to their plain "
+              f"versions over {g['reduces']} reduces a step; {g['step_ms']:.2f} ms/step, of it "
+              f"the {g['bn_allreduces']} BatchNorm all-reduces alone {g['bn_allreduce_ms']:.2f} "
+              f"ms ({100 * g['bn_allreduce_share']:.1f}%); float32 against one process "
+              f"{g['f32']}")
     d = r0["detnet"]
     print(f"data-parallel detnet (ResNet-50, 128x128, bf16, {DET_BATCH} images, fused_pallas): "
           f"det_total {d['det_total']}; #9 {[r['detnet']['launches'] for r in ranks]} launches "
@@ -4535,7 +4703,9 @@ def sharded_phase(seed: int) -> tuple[dict, dict]:
           f"two ranks {ranks_s:.1f} s")
     launches = {**{k: n // FSDP_STEPS for k, n in f["launches"].items()},
                 "conv1x1_stats": f["conv1x1"]["launches"]["conv1x1_stats"],
-                "bn_backward_reduces": d["launches"] // DET_STEPS}
+                "bn_backward_reduces": d["launches"] // DET_STEPS,
+                "fsdp_bn": {k: n for g in r0["fsdp_fused"].values()
+                            for k, n in g["launches"].items() if n}}
     perf = {"world1": world1, "ranks": ranks, "phase_s": phase_s, "ranks_s": ranks_s,
             "staged": staged, "rank_logs_tail": [log[-2000:] for log in logs]}
     return perf, launches
@@ -4720,6 +4890,7 @@ def main() -> int:
             "library_ms": None,
             **{k: main_row[k] for k in ("exact_pair_ms", "exact_pair_device_ms",
                                         "pair_bound_ms")},
+            "fsdp_launches_a_rank_a_step": sharded_launches["fsdp_bn"][name],
             "at": shapes,
         })
     main_row = fused_bn_report["bn_backward_reduces"]["stem_bf16"]
@@ -4731,6 +4902,7 @@ def main() -> int:
                                     "bound_by", "library_ms", "library_device_ms")},
         "finetune_launches": finetune_launches["bn_backward_reduces"],
         "data_parallel_launches_a_rank_a_step": sharded_launches["bn_backward_reduces"],
+        "fsdp_launches_a_rank_a_step": sharded_launches["fsdp_bn"]["bn_backward_reduces"],
         "finetune_rel_err": finetune_perf["bn_backward_reduces_rel"],
         "at": fused_bn_report["bn_backward_reduces"],
     })

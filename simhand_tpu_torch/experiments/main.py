@@ -45,8 +45,8 @@ Where it departs from the JAX package:
   * ``--profile_dir`` records ``torch.profiler`` and writes a Chrome trace
     there, in place of ``jax.profiler``;
   * ``--fsdp`` on one device does nothing, as JAX's does there (it needs a
-    mesh); with ``WORLD_SIZE > 1`` the fused BatchNorm variants raise
-    under it (their kernels have no cross-replica reduce);
+    mesh); with ``WORLD_SIZE > 1`` every ``--bn_variant`` runs under it,
+    the fused ones with their kernels' sums all-reduced over the ranks;
   * with several ranks, the preemption flag is agreed over the ranks at
     each step (one all-reduce of a host integer over gloo, beside NCCL),
     so every rank saves or stops at the same step and none waits for its

@@ -9,8 +9,8 @@
 aligned to gt (root 0, ref bone 0-9 — utils/align.py:12-25), then metric
 EPE (mm) + PCK AUC over 20..50mm, and the normalized-frame EPE/AUC like
 train-time eval. 2D / tip-only sets: heatmap-argmax 2D PCK in input-space
-pixels over the valid joints (tip slots only for do/eo); their readers
-are not ported yet (``finetune/registry.py``).
+pixels over the valid joints (tip slots only for do/eo), and for do/eo
+with their 3D tips the masked-tip metric EPE and AUC.
 
 ``--checkpoint`` reads the trainer's checkpoints (``CheckpointManager``),
 ``--pretrain`` a detnet ``.pth`` in the reference's keys. ``--device``:
@@ -28,6 +28,7 @@ import torch
 
 from simhand_tpu_torch.convert import load_detnet_state_dict
 from simhand_tpu_torch.device import resolve_device
+from simhand_tpu_torch.finetune.benchmarks import FINGERTIP_IDS
 from simhand_tpu_torch.finetune.datasets import DetnetSampleBuilder, detnet_batch_iterator
 from simhand_tpu_torch.finetune.detnet import DetNet
 from simhand_tpu_torch.finetune.evaluation import EvalUtil, global_align
@@ -40,8 +41,6 @@ logger = logging.getLogger("simhand_tpu_torch.finetune.evaluate")
 TIP_ONLY = ("do", "eo", "dexter_object", "egodexter")
 SETS_2D = ("cmu", "hand_labels", "hand143", "panoptic", "ganerated", "gan",
            "ego4d", "ego4d_hands") + TIP_ONLY
-# the five fingertips in the freihand order (simhand_tpu/finetune/benchmarks.py:667)
-FINGERTIP_IDS = [4, 8, 12, 16, 20]
 
 
 @torch.no_grad()

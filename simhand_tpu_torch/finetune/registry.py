@@ -1,44 +1,48 @@
 """Fine-tune dataset registry (counterpart of
 ``simhand_tpu/finetune/registry.py``; reference:
 minimal-hand/datasets/__init__.py get_frame_dataset factory — name ->
-dataset class). The keys of the benchmark readers raise
-``NotImplementedError`` until those readers are ported."""
+dataset class). Every key builds its reader: FreiHAND and the synthetic
+sets from ``finetune/datasets.py``, the benchmarks from
+``finetune/benchmarks.py``."""
 from __future__ import annotations
 
 from typing import Any
 
 
-# the readers of simhand_tpu/finetune/benchmarks.py, not ported yet
-_NOT_PORTED = {
-    "dexycb": "DexYCB", "dy": "DexYCB", "assemblyhands": "AssemblyHandsEgo",
-    "ah": "AssemblyHandsEgo", "ah-ego": "AssemblyHandsEgo", "ah-exo": "AssemblyHandsExo",
-    "stb": "STB", "rhd": "RHD", "cmu": "CMUHandLabels", "hand_labels": "CMUHandLabels",
-    "hand143": "CMUPanoptic143", "panoptic": "CMUPanoptic143", "ganerated": "GANeratedHands",
-    "gan": "GANeratedHands", "dexter_object": "DexterObject", "do": "DexterObject",
-    "egodexter": "EgoDexter", "eo": "EgoDexter", "ego4d_hands": "Ego4DHands2D",
-    "ego4d": "Ego4DHands2D",
-}
-
-
 def get_dataset(name: str, root_dir: str, split: str = "train", **kw) -> Any:
     """Instantiates a fine-tune/eval dataset by its reference name."""
+    from simhand_tpu_torch.finetune import benchmarks as B
+    from simhand_tpu_torch.finetune import datasets as D
+
     name = name.lower()
     if name in ("freihand", "fh"):
-        from simhand_tpu_torch.finetune.datasets import FreiHand
-
-        return FreiHand(root_dir, split, **kw)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {name!r} ({_NOT_PORTED[name]}, simhand_tpu/finetune/benchmarks.py) "
-            "is not ported yet (ROADMAP.md Queue 1 item 10)")
+        return D.FreiHand(root_dir, split, **kw)
+    if name in ("dexycb", "dy"):
+        return B.DexYCB(root_dir, split, **kw)
+    if name in ("assemblyhands", "ah", "ah-ego"):
+        return B.AssemblyHandsEgo(root_dir, split, **kw)
+    if name == "ah-exo":
+        return B.AssemblyHandsExo(root_dir, split, **kw)
+    if name == "stb":
+        return B.STB(root_dir, split)
+    if name == "rhd":
+        return B.RHD(root_dir, split)
+    if name in ("cmu", "hand_labels"):
+        return B.CMUHandLabels(root_dir, split)
+    if name in ("hand143", "panoptic"):
+        return B.CMUPanoptic143(root_dir)
+    if name in ("ganerated", "gan"):
+        return B.GANeratedHands(root_dir)
+    if name in ("dexter_object", "do"):
+        return B.DexterObject(root_dir)
+    if name in ("egodexter", "eo"):
+        return B.EgoDexter(root_dir)
+    if name in ("ego4d_hands", "ego4d"):
+        return B.Ego4DHands2D(root_dir, **kw)
     if name == "synthetic":
-        from simhand_tpu_torch.finetune.datasets import SyntheticPoseDataset
-
-        return SyntheticPoseDataset(**kw)
+        return D.SyntheticPoseDataset(**kw)
     if name == "synthetic-hand":
-        from simhand_tpu_torch.finetune.datasets import SyntheticPoseDataset
-
-        return SyntheticPoseDataset(render_joints=True, **kw)
+        return D.SyntheticPoseDataset(render_joints=True, **kw)
     raise KeyError(f"unknown dataset {name!r}")
 
 

@@ -10,6 +10,7 @@ from simhand_tpu_torch.losses.ntxent_kernels import (
     nt_xent_kernel,
     weighted_nt_xent_kernel,
 )
+from simhand_tpu_torch.losses.supervised import epe_metrics, l1_loss_25d, loss_3d
 from simhand_tpu_torch.losses.weights import (
     apply_pca,
     linear_weights,
@@ -19,7 +20,10 @@ from simhand_tpu_torch.losses.weights import (
 
 __all__ = [
     "apply_pca",
+    "epe_metrics",
+    "l1_loss_25d",
     "linear_weights",
+    "loss_3d",
     "make_sharded_nt_xent_kernel",
     "make_sharded_weighted_nt_xent_kernel",
     "neg_weighted_nt_xent",

@@ -26,6 +26,16 @@ is the row-major (M, C) plane. On CPU tensors it calls the plain version;
 on CUDA tensors it launches its kernel from ``csrc/bn_epilogue.cu`` on the
 current stream or raises, and adds one to its ``launches`` count at each
 launch and nowhere else.
+
+With an ``axis`` (``parallel.mesh``; set by ``ContrastiveModel.
+sync_batch_norms`` for the FSDP step), the statistics are those of the
+global batch, as in the reference's GSPMD step: the forward's (sum x,
+sum x^2) are all-reduced in one collective of 2C float32 values a site and
+divided by the global row count; in the backward the reduce (#5 or #7, or
+its plain version) sums this rank's rows, one collective all-reduces its
+(sum dy, sum dy*xhat), and the dx pass (#6 or #8) takes k1 and k2 over the
+global rows. dres is elementwise and stays local, and so do the parameter
+gradients (this rank's sums; the FSDP step sums them over the ranks).
 """
 from __future__ import annotations
 
@@ -294,13 +304,33 @@ def _channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return v.view(1, -1, *([1] * (x.dim() - 2)))
 
 
-def batch_stats(x: torch.Tensor, eps: float):
-    """(mu, var, inv) per channel in float32, var = E[x^2] - mu^2."""
+def rows(x: torch.Tensor, axis=None) -> int:
+    """The rows a BatchNorm of x reduces over: this rank's, times the ranks."""
+    return x.numel() // x.shape[1] * (1 if axis is None else axis.size)
+
+
+def batch_stats(x: torch.Tensor, eps: float, axis=None):
+    """(mu, var, inv) per channel in float32, var = E[x^2] - mu^2; with an
+    axis over the global batch: the ranks' (sum x, sum x^2) in one
+    all-reduce, over the global row count."""
     dims = [d for d in range(x.dim()) if d != 1]
     x32 = x.float()
-    mu = x32.mean(dims)
-    var = (x32 * x32).mean(dims) - mu * mu
+    if axis is None:
+        mu = x32.mean(dims)
+        var = (x32 * x32).mean(dims) - mu * mu
+    else:
+        sums = axis.reduce_raw(torch.stack([x32.sum(dims), (x32 * x32).sum(dims)]), "sum")
+        mu, m2 = sums / rows(x, axis)
+        var = m2 - mu * mu
     return mu, var, torch.rsqrt(var + eps)
+
+
+def global_sums(axis, sum_dy: torch.Tensor, sum_dyx: torch.Tensor):
+    """The ranks' (sum dy, sum dy*xhat): one all-reduce of 2C float32 values
+    (the sums themselves without an axis)."""
+    if axis is None:
+        return sum_dy, sum_dyx
+    return axis.reduce_raw(torch.stack([sum_dy, sum_dyx]), "sum").unbind()
 
 
 def _affine_consts(mu, inv, scale, bias):
@@ -328,60 +358,64 @@ def _bn_apply(x, mu, inv, scale, bias, residual=None):
 class BNReluTrain(torch.autograd.Function):
     """y = relu(bn(x)) in train mode; returns (y, mu, var). impl="kernel"
     runs the backward through the kernel wrappers, impl="plain" through the
-    plain versions on any device."""
+    plain versions on any device; an axis takes the global batch's
+    statistics."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, impl):
-        mu, var, inv = batch_stats(x, eps)
+    def forward(ctx, x, scale, bias, eps, impl, axis=None):
+        mu, var, inv = batch_stats(x, eps, axis)
         ctx.save_for_backward(x, mu, inv, scale, bias)
-        ctx.impl = impl
+        ctx.impl, ctx.axis = impl, axis
         ctx.mark_non_differentiable(mu, var)
         return _bn_apply(x, mu, inv, scale, bias), mu, var
 
     @staticmethod
     def backward(ctx, g, _dmu, _dvar):
         x, mu, inv, scale, bias = ctx.saved_tensors
-        m = x.numel() // x.shape[1]
+        m = rows(x, ctx.axis)
         A, B, C, D = _affine_consts(mu, inv, scale, bias)
         P = scale.float() * inv
         if ctx.impl == "kernel":
             sum_dy, sum_dyx = masked_dual_reduce(g, x, A, B, C, D)
-            dx = masked_dx(g, x, A, B, C, D, P, sum_dy / m, sum_dyx / m)
+            k_dy, k_dyx = global_sums(ctx.axis, sum_dy, sum_dyx)
+            dx = masked_dx(g, x, A, B, C, D, P, k_dy / m, k_dyx / m)
         else:
             g2d, x2d = as_rows(g), as_rows(x)
             sum_dy, sum_dyx = masked_dual_reduce_plain(g2d, x2d, A, B, C, D)
-            dx = from_rows(masked_dx_plain(g2d, x2d, A, B, C, D, P, sum_dy / m,
-                                           sum_dyx / m), x)
-        return dx, sum_dyx.to(scale.dtype), sum_dy.to(bias.dtype), None, None
+            k_dy, k_dyx = global_sums(ctx.axis, sum_dy, sum_dyx)
+            dx = from_rows(masked_dx_plain(g2d, x2d, A, B, C, D, P, k_dy / m, k_dyx / m), x)
+        return dx, sum_dyx.to(scale.dtype), sum_dy.to(bias.dtype), None, None, None
 
 
 class BNAddReluTrain(torch.autograd.Function):
     """y = relu(bn(x) + residual) in train mode; returns (y, mu, var)."""
 
     @staticmethod
-    def forward(ctx, x, residual, scale, bias, eps, impl):
-        mu, var, inv = batch_stats(x, eps)
+    def forward(ctx, x, residual, scale, bias, eps, impl, axis=None):
+        mu, var, inv = batch_stats(x, eps, axis)
         ctx.save_for_backward(x, residual, mu, inv, scale, bias)
-        ctx.impl = impl
+        ctx.impl, ctx.axis = impl, axis
         ctx.mark_non_differentiable(mu, var)
         return _bn_apply(x, mu, inv, scale, bias, residual), mu, var
 
     @staticmethod
     def backward(ctx, g, _dmu, _dvar):
         x, r, mu, inv, scale, bias = ctx.saved_tensors
-        m = x.numel() // x.shape[1]
+        m = rows(x, ctx.axis)
         A, B, C, D = _affine_consts(mu, inv, scale, bias)
         P = scale.float() * inv
         if ctx.impl == "kernel":
             sum_dy, sum_dyx, dres = masked_dual_reduce_res(g, x, r, A, B, C, D)
-            dx = masked_dx_res(dres, x, C, D, P, sum_dy / m, sum_dyx / m)
+            k_dy, k_dyx = global_sums(ctx.axis, sum_dy, sum_dyx)
+            dx = masked_dx_res(dres, x, C, D, P, k_dy / m, k_dyx / m)
         else:
             x2d = as_rows(x)
             sum_dy, sum_dyx, dres2d = masked_dual_reduce_res_plain(as_rows(g), x2d, as_rows(r),
                                                                    A, B, C, D)
-            dx = from_rows(masked_dx_res_plain(dres2d, x2d, C, D, P, sum_dy / m, sum_dyx / m), x)
+            k_dy, k_dyx = global_sums(ctx.axis, sum_dy, sum_dyx)
+            dx = from_rows(masked_dx_res_plain(dres2d, x2d, C, D, P, k_dy / m, k_dyx / m), x)
             dres = from_rows(dres2d, r)
-        return dx, dres, sum_dyx.to(scale.dtype), sum_dy.to(bias.dtype), None, None
+        return dx, dres, sum_dyx.to(scale.dtype), sum_dy.to(bias.dtype), None, None, None
 
 
 class BNRelu(BatchNorm2d):
@@ -391,7 +425,9 @@ class BNRelu(BatchNorm2d):
 
     A BatchNorm2d, so its state-dict keys, the weight-decay mask and the
     initialisation are those of the exact BatchNorm. The output has the
-    input's dtype; statistics are float32.
+    input's dtype; statistics are float32. Its ``axis`` (None until
+    ``ContrastiveModel.sync_batch_norms`` sets one) gives train mode the
+    global batch's statistics.
     """
 
     def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5,
@@ -408,9 +444,10 @@ class BNRelu(BatchNorm2d):
             inv = torch.rsqrt(self.running_var + self.eps)
             return _bn_apply(x, self.running_mean, inv, self.weight, self.bias, residual)
         if residual is None:
-            y, mu, var = BNReluTrain.apply(x, self.weight, self.bias, self.eps, self.impl)
+            y, mu, var = BNReluTrain.apply(x, self.weight, self.bias, self.eps, self.impl,
+                                           self.axis)
         else:
             y, mu, var = BNAddReluTrain.apply(x, residual, self.weight, self.bias,
-                                              self.eps, self.impl)
+                                              self.eps, self.impl, self.axis)
         update_running_stats(self, mu, var)
         return y

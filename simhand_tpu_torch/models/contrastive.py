@@ -44,8 +44,6 @@ from simhand_tpu_torch.models.equivariance import (
     _l2_normalize,
     inverse_transform_projections,
 )
-from simhand_tpu_torch.models.bn_epilogue import BNRelu
-from simhand_tpu_torch.models.fused_bn import FusedBatchNorm
 from simhand_tpu_torch.models.layers import _FlaxBatchNorm, frozen_running_stats
 from simhand_tpu_torch.models.projection import ProjectionHead
 from simhand_tpu_torch.models.resnet import FEATURE_DIMS, RESNETS
@@ -132,16 +130,11 @@ class ContrastiveModel(nn.Module):
 
     def sync_batch_norms(self, axis) -> None:
         """Gives every BatchNorm of the model, the projection head's too,
-        cross-replica statistics over ``axis`` (None: per-replica again):
-        the global-batch BatchNorm of the FSDP step. The fused modes have no
-        cross-replica statistics and raise."""
-        fused = [m for m in self.modules() if isinstance(m, (FusedBatchNorm, BNRelu))]
-        if axis is not None and fused:
-            raise NotImplementedError(
-                f"{type(fused[0]).__name__} (bn_fused) over {axis.size} ranks: kernels #5-#9 "
-                "reduce their per-channel sums over this rank's rows only, and the "
-                "cross-replica reduce of those sums (a psum of #5's and #9's) is not "
-                "ported. Use the exact BatchNorm, bn_subsample or conv1x1_fuse_min_cin")
+        the global batch's statistics over ``axis`` (None: per-replica
+        again): the BatchNorm of the FSDP step. The fused modes take it as
+        well: their kernels (#5-#9) reduce this rank's rows, and their sums
+        are all-reduced over the axis (``models/fused_bn.py``,
+        ``models/bn_epilogue.py``)."""
         for m in self.modules():
             if isinstance(m, _FlaxBatchNorm):
                 m.axis = axis

@@ -22,6 +22,17 @@ on dim 1: (M, C) planes or NCHW activations with channels-last strides. On
 CPU tensors it calls the plain version; on CUDA tensors it launches the
 kernel on the current stream or raises, and adds one to its ``launches``
 count at each launch and nowhere else.
+
+With an ``axis`` (set by ``ContrastiveModel.sync_batch_norms`` for the FSDP
+step, whose BatchNorms see the global batch as the reference's GSPMD step
+does), the forward's (sum x, sum x^2) are all-reduced in one collective of
+2C float32 values a site and divided by the global row count, and the
+backward's two reductions over this rank's rows (#9, or its plain version)
+are all-reduced in one collective before ``dx`` takes them over the global
+rows (none with ``stop_gradient_stats``, whose ``dx`` does not read them).
+The parameter gradients stay this rank's sums: the FSDP step sums them
+over the ranks. The constructor's ``axis`` is the data-parallel route's
+and stays refused, as the reference asserts.
 """
 from __future__ import annotations
 
@@ -68,13 +79,13 @@ class BNTrain(torch.autograd.Function):
     """bn(x) in train mode with the hand-derived backward (fused_bn.py:32-88);
     returns (y, mu, var). reduce_impl="kernel" takes the backward's two
     reductions through the kernel wrapper, "plain" through the plain version
-    on any device."""
+    on any device; an axis takes the global batch's statistics."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, stop_gradient_stats, reduce_impl):
-        mu, var, inv = E.batch_stats(x, eps)
+    def forward(ctx, x, scale, bias, eps, stop_gradient_stats, reduce_impl, axis=None):
+        mu, var, inv = E.batch_stats(x, eps, axis)
         ctx.save_for_backward(x, mu, inv, scale)
-        ctx.stop_gradient_stats, ctx.reduce_impl = stop_gradient_stats, reduce_impl
+        ctx.stop_gradient_stats, ctx.reduce_impl, ctx.axis = stop_gradient_stats, reduce_impl, axis
         ctx.mark_non_differentiable(mu, var)
         return E.bn_affine(x, mu, inv, scale, bias), mu, var
 
@@ -84,7 +95,7 @@ class BNTrain(torch.autograd.Function):
         # one (M, C) plane of each: a view of the channels-last activation;
         # the gradient is copied once if autograd hands it in another layout
         x2d, g2d = E.as_rows(x), E.as_rows(g)
-        m = x2d.shape[0]
+        m = E.rows(x, ctx.axis)
         if ctx.reduce_impl == "kernel":
             sum_dy, sum_dyx = bn_backward_reduces(x2d, g2d, mu, inv)
         else:
@@ -95,10 +106,11 @@ class BNTrain(torch.autograd.Function):
             # the statistics are constants: dx is a scaled dy (fused_bn.py:73-76)
             dx = a * g32
         else:
+            k_dy, k_dyx = E.global_sums(ctx.axis, sum_dy, sum_dyx)
             xhat = (x2d.float() - mu) * inv
-            dx = a * (g32 - sum_dy / m - xhat * (sum_dyx / m))
+            dx = a * (g32 - k_dy / m - xhat * (k_dyx / m))
         return (E.from_rows(dx.to(x.dtype), x), sum_dyx.to(scale.dtype),
-                sum_dy.to(scale.dtype), None, None, None)
+                sum_dy.to(scale.dtype), None, None, None, None)
 
 
 class FusedBatchNorm(BatchNorm2d):
@@ -111,7 +123,9 @@ class FusedBatchNorm(BatchNorm2d):
     initialisation are those of the exact BatchNorm. Train mode updates the
     running statistics with flax momentum and the biased variance; eval mode
     applies them with the same two-rounding affine. The output has the
-    input's dtype; statistics are float32.
+    input's dtype; statistics are float32. Its ``axis`` attribute (None
+    until ``ContrastiveModel.sync_batch_norms`` sets one) gives train mode
+    the global batch's statistics.
     """
 
     def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5,
@@ -119,8 +133,9 @@ class FusedBatchNorm(BatchNorm2d):
         if axis is not None:
             # as the reference asserts (fused_bn.py:114)
             raise NotImplementedError(
-                "FusedBatchNorm is per-replica only: it has no cross-replica statistics; "
-                "use the exact BatchNorm (bn_fused=False) with a BatchNorm axis")
+                "FusedBatchNorm is per-replica only on the data-parallel route: it takes no "
+                "BatchNorm axis there; use the exact BatchNorm (bn_fused=False) with a "
+                "BatchNorm axis, or the FSDP step, whose global batch it takes")
         super().__init__(c, momentum, eps)
         if reduce_impl not in ("kernel", "plain"):
             raise ValueError(f"reduce_impl must be 'kernel' or 'plain', got {reduce_impl!r}")
@@ -131,6 +146,6 @@ class FusedBatchNorm(BatchNorm2d):
             inv = torch.rsqrt(self.running_var + self.eps)
             return E.bn_affine(x, self.running_mean, inv, self.weight, self.bias)
         y, mu, var = BNTrain.apply(x, self.weight, self.bias, self.eps,
-                                   self.stop_gradient_stats, self.reduce_impl)
+                                   self.stop_gradient_stats, self.reduce_impl, self.axis)
         update_running_stats(self, mu, var)
         return y

@@ -27,7 +27,9 @@ at least that many input channels through ``fused_conv.fused_conv_bn_site``
 encoder cross-replica statistics in train mode: the exact BatchNorm, the
 subsampled one and the fused conv1x1+BN site. ``FusedBatchNorm`` and the
 epilogue refuse it, as the reference does (``fused_bn.py:114``,
-``resnet.py:173-183``).
+``resnet.py:173-183``): that is the data-parallel route. The FSDP step's
+global batch reaches every site, the fused ones too, through
+``ContrastiveModel.sync_batch_norms``.
 
 ``stem="space_to_depth"`` is the reference's MLPerf stem: the images
 rearranged by ``space_to_depth(x, 2)``, then ``conv1_s2d``, a 4x4 stride-1

@@ -24,7 +24,11 @@ port gives every BatchNorm the world axis (``sync_batch_norms``) and takes
 the loss over it; autograd through the axis's collectives then gives each
 rank W times its rows' share of the global gradient on the dense route
 and its share itself on the kernel route (``parallel/mesh.py``), so the
-reduce-scattered sum is divided by W on the dense route only. Device
+reduce-scattered sum is divided by W on the dense route only. Every
+``bn_fused`` mode runs: its kernels (#5-#9) reduce this rank's rows and
+their per-channel sums are all-reduced over the world, one collective a
+site in the forward and one in the backward (``models/fused_bn.py``,
+``models/bn_epilogue.py``). Device
 augmentation draws for the global batch from ``(0, step)``, no rank in
 the key, and each rank keeps its rows. At one rank there is no axis: the
 step is the single-device step.
@@ -306,9 +310,8 @@ def make_fsdp_train_step(model, cfg: ContrastiveConfig, axes, state: TrainState,
     ``step(state, batch) -> (state, metrics)`` on an FSDP state and this
     rank's rows of the global batch, ``place_state`` (a whole state -> the
     FSDP layout) and ``place_batch`` (a global host batch -> this rank's
-    rows on the model's device). Every BatchNorm of ``model`` takes the
-    world axis (``sync_batch_norms``); the fused BatchNorm modes raise with
-    more than one rank."""
+    rows on the model's device). Every BatchNorm of ``model``, in every
+    ``bn_fused`` mode, takes the world axis (``sync_batch_norms``)."""
     mesh = as_mesh(axes)
     batch_axis = mesh.world if mesh.world.size > 1 else None
     model.sync_batch_norms(batch_axis)

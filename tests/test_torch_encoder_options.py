@@ -18,12 +18,10 @@ from simhand_tpu.models import ContrastiveModel as JModel
 from simhand_tpu.models.resnet import s2d_stem_kernel as j_s2d_kernel
 from simhand_tpu.models.resnet import space_to_depth as j_space_to_depth
 from simhand_tpu_torch.convert import from_flax_variables
-from simhand_tpu_torch.models import ContrastiveConfig as TConfig
 from simhand_tpu_torch.models import ContrastiveModel as TModel
 from simhand_tpu_torch.models.fused_bn import FusedBatchNorm
 from simhand_tpu_torch.models.layers import Conv2d
 from simhand_tpu_torch.models.resnet import s2d_stem_kernel, space_to_depth
-from simhand_tpu_torch.parallel import make_fsdp_train_step
 from torch_thread_axis import ThreadAxis, ThreadGroup
 
 torch.set_num_threads(2)
@@ -142,12 +140,11 @@ def test_remat_matches_jax_remat_and_updates_statistics_once():
 
 
 def test_cross_replica_refusals():
-    """FusedBatchNorm with an axis (the reference asserts, fused_bn.py:114),
-    bn_fused="epilogue"/"epilogue_xla" and "pallas"/True with a BatchNorm
-    axis (resnet.py:173-183), and the FSDP step (main's --fsdp with
-    WORLD_SIZE > 1) of a model with a fused BatchNorm variant over two
-    ranks (its kernels have no cross-replica reduce; raised before any
-    collective) each raise NotImplementedError naming the reason."""
+    """On the data-parallel route, FusedBatchNorm with an axis (the
+    reference asserts, fused_bn.py:114), bn_fused="epilogue"/"epilogue_xla"
+    and "pallas"/True with a BatchNorm axis (resnet.py:173-183) each raise
+    NotImplementedError naming the reason. (The FSDP step takes every fused
+    mode: tests/test_torch_fsdp_fused_bn.py.)"""
     axis = ThreadAxis(ThreadGroup(1), 0)
     with pytest.raises(NotImplementedError, match="per-replica only"):
         FusedBatchNorm(8, axis=axis)
@@ -157,7 +154,3 @@ def test_cross_replica_refusals():
     for bn_fused in (True, "pallas"):
         with pytest.raises(NotImplementedError, match="per-replica only"):
             TModel("18", bn_fused=bn_fused, bn_axis=axis)
-    two = ThreadAxis(ThreadGroup(2), 0)
-    for bn_fused in ("epilogue", "pallas"):
-        with pytest.raises(NotImplementedError, match="cross-replica reduce"):
-            make_fsdp_train_step(TModel("18", bn_fused=bn_fused), TConfig(), two, None)

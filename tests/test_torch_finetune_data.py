@@ -240,7 +240,10 @@ def test_each_cv2_op_matches():
                                    (x @ w).mean(), rtol=1e-6, atol=0)
 
 
-def test_build_composed_dataset_parsing():
+def test_build_composed_dataset_parsing(tmp_path):
+    """The registry's composed sets in both packages, sample for sample: the
+    synthetic sets alone, mixed and weighted, and a synthetic set beside a
+    benchmark reader (CMU hand labels on the JAX tests' layout)."""
     for names, kw in (("synthetic", {}), ("synthetic,synthetic-hand", {}),
                       (["synthetic", "synthetic-hand"], {"weights": [1.0, 3.0], "epoch_size": 9})):
         j = jreg.build_composed_dataset(names, None, "train", synthetic_n=6, **kw)
@@ -250,9 +253,15 @@ def test_build_composed_dataset_parsing():
             assert_same(j[i], t[i])
     assert treg.DATASET_KEYS == jreg.DATASET_KEYS and treg._NO_SPLIT == jreg._NO_SPLIT
     assert len(treg.build_composed_dataset("synthetic", None, "val", synthetic_n=6)) == 6
-    for key in ("dexycb", "rhd", "stb", "ah-exo", "ego4d", "do"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            treg.get_dataset(key, "/nonexistent")
+    from test_benchmark_readers import test_cmu_hand_labels_reader as write_cmu
+
+    write_cmu(tmp_path)
+    roots = [None, str(tmp_path / "cmu")]
+    j = jreg.build_composed_dataset("synthetic,cmu", roots, "train", synthetic_n=6)
+    t = treg.build_composed_dataset("synthetic,cmu", roots, "train", synthetic_n=6)
+    assert type(t).__name__ == type(j).__name__ == "ConcatDataset" and len(t) == len(j) == 8
+    for i in range(len(j)):
+        assert_same(j[i], t[i])
     with pytest.raises(KeyError):
         treg.get_dataset("nope", None)
 
