@@ -307,6 +307,33 @@
    4,096-hand tie corpus's ring on the card == the same ring on the CPU),
    hands/s of each. Prints what gloo staged through the host and the
    phase's seconds.
+22. after 21, the MANO side (``simhand_tpu_torch.finetune``: mano,
+   create_data, train_shape_net, optimize_shape, recon, demo; no kernel of
+   the record lies on it, and the phase fails if one launches), under
+   build/mano_<seed> on synthetic MANO parameters from ``--seed`` at MANO's
+   widths (778 vertices, 16 joints, 10 shape and 135 pose coefficients;
+   a copy of tests/test_mano.py's generator, written as a pickle): the MANO
+   forward on random Rodrigues poses at B = 1 and 4,096 on the card against
+   the CPU (verts and joints21 within 1e-5 of the largest; ms a forward),
+   and timed against a variant whose chain runs a batched product a level
+   of the tree in place of the port's product a joint;
+   ``create_data.main`` at its default 1,000,000 pairs (the first 4,096
+   bones within rel 1e-6 of ``relative_bone_lengths`` on the CPU;
+   samples/s); ``train_shape_net.main`` at B = 512 for 1,000 steps on
+   ``--data_root`` (that SIK1M) and on the fly (losses finite, the last
+   100 steps' mean below the first 100's, ``--out`` strict-loaded and
+   equal; ms a step of the step loop: the call less a ``--steps 0``
+   call's set-up); ``optimize_shape.main`` with that ShapeNet: the
+   synthetic comparison at ``--n 32`` (bone-length MAE of PSO, LM and
+   ShapeNet finite, PSO's first beta within 1e-4 of PSO on the CPU) and
+   ``--pre_joints`` on 256 MANO joints; ``recon.main --n 8``; the demo's
+   per-frame function (``demo.track_frame``) on 64 random 128x128 frames
+   from phase 18's bf16 detnet artifact (exported again if absent), on the
+   PSO and the ShapeNet route (xyz, uv, verts (778, 3) and beta finite;
+   ``reconstruct`` on the CPU from the card's xyz and beta within 1e-5 of
+   the card's verts). Prints frames/s, the ms a frame of the forward, the
+   smoother, the shape step, AIK and MANO (each stage synchronized), and
+   the phase's seconds. It imports no cv2.
 
 Any failure ends the run with a non-zero exit code. The last line of the
 output is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -1529,7 +1556,7 @@ def finetune_path(seed: int) -> tuple[dict, dict]:
     with torch.no_grad():
         want = head.eval()(x)["kp3d"]
         got = head.to(dev)(x.to(dev))["kp3d"].cpu()
-    head_err = float((got - want).abs().max() / want.abs().max())
+    head_err = rel_largest(got, want)
     require(head_err <= FT_HEAD_RTOL, f"RN25DWithMLPRef on the card: rel {head_err:.3e}")
 
     perf = {"steps": steps, "batch": FT_BATCH,
@@ -1776,13 +1803,12 @@ def bn_kernel_phase(seed: int) -> dict:
                 require(row["second_launch_bit_equal"],
                         f"{name} {label} {tag}: a second launch gave other bits")
                 if "reduce" in name:
-                    rels = [float((a - b).abs().max() / b.abs().max())
-                            for a, b in zip(got[:2], want[:2])]
+                    rels = [rel_largest(a, b) for a, b in zip(got[:2], want[:2])]
                     row["sums_rel_err"] = max(rels)
                     require(max(rels) <= 1e-5, f"{name} {label} {tag}: sums rel err {rels}")
                 if name == "masked_dual_reduce":
                     # a gradient that is not channels-last, which the wrapper copies
-                    rels = [float((a - b).abs().max() / b.abs().max())
+                    rels = [rel_largest(a, b)
                             for a, b in zip(E.masked_dual_reduce(g.contiguous(), x, *cs), want)]
                     row["sums_rel_err_nchw_g"] = max(rels)
                     require(max(rels) <= 1e-5, f"{name} {label} {tag} NCHW g: sums rel err {rels}")
@@ -2026,7 +2052,7 @@ def fused_bn_kernel_phase(seed: int) -> dict:
             for layout, dy in (("channels_last", g), ("nchw_dy", g.contiguous())):
                 got, again = (F.bn_backward_reduces(x, dy, mu, inv) for _ in range(2))
                 torch.cuda.synchronize()
-                rels = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want)]
+                rels = [rel_largest(a, b) for a, b in zip(got, want)]
                 require(max(rels) <= 1e-5, f"#9 {label} {tag} {layout}: sums rel err {rels}")
                 require(all(torch.equal(a, b) for a, b in zip(got, again)),
                         f"#9 {label} {tag} {layout}: a second launch gave other bits")
@@ -2035,8 +2061,7 @@ def fused_bn_kernel_phase(seed: int) -> dict:
             row["ring"] = ring_taken(kernel)
             require(row["ring"] == (label != "ragged"), f"#9 {label} {tag}: ring {row['ring']}")
             row["max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(kernel(), want))
-            row["library_rel_diff"] = max(float((a - b).abs().max() / b.abs().max())
-                                          for a, b in zip(library(), want))
+            row["library_rel_diff"] = max(rel_largest(a, b) for a, b in zip(library(), want))
             big = m * c >= 10**8
             row["ms"] = cuda_ms(kernel, 20 if big else 50)
             row["device_ms"] = device_ms(kernel, 10)
@@ -2735,6 +2760,18 @@ def serving_model(seed: int):
                                seed)
 
 
+def serving_detnet(seed: int):
+    """Phase 18's ResNet-50 DetNet at SIDE in bf16 on the card, eval mode,
+    with random weights and BatchNorm statistics from ``seed + 2``."""
+    import torch
+
+    from simhand_tpu_torch.finetune.detnet import DetNet
+
+    torch.manual_seed(seed + 2)
+    return randomize_batchnorm(DetNet(RESNET, dtype=torch.bfloat16, hm_res=SIDE // 4).cuda().eval(),
+                               seed + 2)
+
+
 def randomize_batchnorm(model, seed: int):
     """serving_model's BatchNorm affines and running statistics, from seed."""
     import torch
@@ -2995,7 +3032,6 @@ def serving_entry_points(seed: int) -> dict:
 
     from simhand_tpu_torch import native
     from simhand_tpu_torch.data.cache import CachedHand100MSource
-    from simhand_tpu_torch.finetune.detnet import DetNet
     from simhand_tpu_torch.ops import bottleneck_block as BB
     from simhand_tpu_torch.serving import embed, export, int8_infer, server
     from simhand_tpu_torch.serving.embed import _preprocess_fn
@@ -3018,9 +3054,7 @@ def serving_entry_points(seed: int) -> dict:
                                         decay_mask(model)))
     CheckpointManager(str(root / "checkpoints")).save(1, state, {"contrastive_loss": 0.0})
     del state
-    torch.manual_seed(seed + 2)
-    det = randomize_batchnorm(DetNet(RESNET, dtype=torch.bfloat16, hm_res=SIDE // 4).cuda().eval(),
-                              seed + 2)
+    det = serving_detnet(seed)
     export_state_dict(det, str(root / "detnet.pth"))
 
     enc = ["--surface", "encoder", "--backbone", RESNET, "--side", str(SIDE),
@@ -3479,7 +3513,7 @@ def s2d_stem_check(seed: int) -> float:
         s2d.weight.copy_(s2d_stem_kernel(w7))
         want = conv7(x.permute(0, 3, 1, 2))
         got = s2d(space_to_depth(x, 2).permute(0, 3, 1, 2))
-    return float((got - want).abs().max() / want.abs().max())
+    return rel_largest(got, want)
 
 
 def encoder_options_path(seed: int, batch) -> dict:
@@ -4711,6 +4745,352 @@ def sharded_phase(seed: int) -> tuple[dict, dict]:
     return perf, launches
 
 
+# phase 22, the MANO side, after phase 21: MANO at its real widths on
+# synthetic parameters from --seed (the official MANO_RIGHT.pkl is not in
+# the repo), ShapeNet at its real widths, the demo's detnet as phase 18's
+# bf16 artifact. No kernel of the record lies on this path.
+# the MANO forward on the card against the CPU, relative to the largest
+# output (float32, TF32 off; the two differ by the sums' order)
+MANO_BATCHES, MANO_TIMED, MANO_RTOL = (1, 4096), 20, 1e-5
+# create_data at its default --total; the first SIK1M_CHECKED rows' bones
+# against relative_bone_lengths on the CPU, element by element
+SIK1M_TOTAL, SIK1M_CHECKED, SIK1M_RTOL = 1_000_000, 4096, 1e-6
+# train_shape_net on each route (its default is 5,000 steps); the loss's
+# mean over the last SHAPE_WINDOW steps must be below the first's
+SHAPE_STEPS, SHAPE_BATCH, SHAPE_WINDOW = 1000, 512, 100
+# optimize_shape: the synthetic comparison's targets and the predicted
+# joints of the dl route; PSO's first beta on the card against the CPU
+OPT_N, PRE_JOINTS, PSO_ATOL = 32, 256, 1e-4
+RECON_N, DEMO_FRAMES, DEMO_VERTS_RTOL = 8, 64, 1e-5
+
+
+def synthetic_mano_params(seed: int) -> dict:
+    """MANO's widths (778 vertices, 16 joints, 10 shape and 135 pose
+    coefficients) with random but kinematically sane values: a copy of
+    tests/test_mano.py's generator (the CPU tests hold the two equal)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_v = 778
+    # skeleton: wrist at origin, 15 joints spread forward
+    joints = np.zeros((16, 3))
+    parents = np.array([0, 0, 1, 2, 0, 4, 5, 0, 7, 8, 0, 10, 11, 0, 13, 14])
+    for j in range(1, 16):
+        joints[j] = joints[parents[j]] + rng.uniform(0.02, 0.04, 3)
+    # vertices clustered around joints
+    assign = rng.integers(0, 16, n_v)
+    verts = joints[assign] + rng.normal(scale=0.01, size=(n_v, 3))
+    # regressor: averages the verts assigned to each joint
+    j_reg = np.zeros((16, n_v))
+    for j in range(16):
+        members = np.where(assign == j)[0]
+        j_reg[j, members] = 1.0 / len(members)
+    weights = np.zeros((n_v, 16), np.float32)
+    weights[np.arange(n_v), assign] = 1.0
+    kintree = np.zeros((2, 16), np.int64)
+    kintree[0] = parents
+    return {
+        "v_template": verts.astype(np.float32),
+        "shapedirs": rng.normal(scale=0.001, size=(n_v, 3, 10)).astype(np.float32),
+        "posedirs": rng.normal(scale=0.0001, size=(n_v, 3, 135)).astype(np.float32),
+        "J_regressor": j_reg.astype(np.float32),
+        "weights": weights,
+        "kintree_table": kintree,
+    }
+
+
+def random_poses(rng, b: int, scale: float):
+    """(b, 16, 3, 3) float32 rotations of axis-angles ~ N(0, scale^2) a
+    component, through the port's Rodrigues (``finetune.aik.axangle2mat``)."""
+    import numpy as np
+
+    from simhand_tpu_torch.finetune.aik import axangle2mat
+
+    aa = rng.normal(scale=scale, size=(b, 16, 3))
+    return np.stack([[axangle2mat(v, np.linalg.norm(v)) for v in row]
+                     for row in aa]).astype(np.float32)
+
+
+def rel_largest(got, want) -> float:
+    """max |got - want| over max |want|, of two tensors or arrays."""
+    import torch
+
+    got, want = torch.as_tensor(got), torch.as_tensor(want)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def level_chain_mano(*args, **kwargs):
+    """A ManoModel whose kinematic chain runs one batched product a level of
+    the tree (three for MANO) in place of the port's product a joint: the
+    design phase 22 times against the port's."""
+    import numpy as np
+    import torch
+
+    from simhand_tpu_torch.finetune.mano import ManoModel
+
+    class LevelChainMano(ManoModel):
+        def __init__(self):
+            super().__init__(*args, **kwargs)
+            depth = np.zeros(len(self.parents), np.int64)
+            for j in range(1, len(self.parents)):
+                depth[j] = depth[self.parents[j]] + 1
+            self.level_index = [
+                tuple(torch.as_tensor(ix.astype(np.int64), device=self.device)
+                      for ix in (np.flatnonzero(depth == d), self.parents[depth == d]))
+                for d in range(1, int(depth.max()) + 1)]
+
+        def _kinematic_chain(self, local):
+            A = local.clone()
+            for joints, parents in self.level_index:
+                A[:, joints] = A[:, parents] @ local[:, joints]
+            return A
+
+    return LevelChainMano()
+
+
+class StageClock:
+    """Seconds by stage of the demo's per-frame function: each wrapped call
+    is bracketed by two synchronizations."""
+
+    def __init__(self):
+        self.seconds = collections.defaultdict(float)
+
+    def wrap(self, name: str, fn):
+        import torch
+
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[name] += time.perf_counter() - t0
+            return out
+
+        return run
+
+
+def demo_route(mano, mano_cpu, apply, shape_net, frames, route: str) -> dict:
+    """The demo's per-frame function on ``frames``: once plain (frames/s),
+    once with each stage timed; then each frame's reconstruct on the CPU
+    from the card's xyz and beta against the card's verts."""
+    import numpy as np
+
+    from simhand_tpu_torch.finetune import demo, recon
+
+    def fresh():
+        return demo.DemoState(apply=apply, mano=mano, shape_net=shape_net)
+
+    state = fresh()
+    demo.track_frame(state, frames[0])        # the artifact's first call
+    state = fresh()
+    t0 = time.perf_counter()
+    outs = [demo.track_frame(state, f) for f in frames]
+    wall = time.perf_counter() - t0
+    for xyz, uv, verts, beta in outs:
+        require(xyz.shape == (21, 3) and uv.shape == (21, 2) and verts.shape == (778, 3)
+                and beta.shape == (10,), f"demo ({route}): shapes {xyz.shape} {verts.shape}")
+        require(all(np.isfinite(a).all() for a in (xyz, uv, verts, beta)),
+                f"demo ({route}): a non-finite output")
+    errs = [rel_largest(verts, recon.reconstruct(mano_cpu, xyz, beta=beta)[0])
+            for xyz, _, verts, beta in outs]
+    print(f"demo ({route}): {len(frames)} frames in {wall:.3f} s = {len(frames) / wall:.1f} "
+          f"frames/s; verts against reconstruct on the CPU, worst {max(errs):.2e} "
+          f"[limit {DEMO_VERTS_RTOL:.0e}]")
+    require(max(errs) <= DEMO_VERTS_RTOL,
+            f"demo ({route}): the card's verts are off reconstruct on the CPU: {max(errs):.2e}")
+
+    clock, state = StageClock(), fresh()
+    state.apply = clock.wrap("forward", apply)
+    state.smoother.process = clock.wrap("smoother", state.smoother.process)
+    mano.forward = clock.wrap("mano", mano.forward)
+    saved = {"regress_shape": demo.regress_shape, "pso_fit_shape": recon.pso_fit_shape,
+             "adaptive_ik": recon.adaptive_ik}
+    demo.regress_shape = clock.wrap("shape", demo.regress_shape)
+    recon.pso_fit_shape = clock.wrap("shape", recon.pso_fit_shape)
+    recon.adaptive_ik = clock.wrap("aik", recon.adaptive_ik)
+    try:
+        t0 = time.perf_counter()
+        for f in frames:
+            demo.track_frame(state, f)
+        split_wall = time.perf_counter() - t0
+    finally:
+        del mano.forward
+        demo.regress_shape = saved["regress_shape"]
+        recon.pso_fit_shape, recon.adaptive_ik = saved["pso_fit_shape"], saved["adaptive_ik"]
+    ms = {k: 1e3 * v / len(frames) for k, v in clock.seconds.items()}
+    ms["rest"] = 1e3 * split_wall / len(frames) - sum(ms.values())
+    print(f"demo ({route}) ms a frame, each stage synchronized: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    return {"frames_per_s": len(frames) / wall, "wall_s": wall, "ms_a_frame": ms,
+            "verts_vs_cpu": max(errs)}
+
+
+def mano_side_phase(seed: int) -> dict:
+    """Phase 22: the MANO side's entry points on the card, at MANO's and
+    ShapeNet's real widths, under build/mano_<seed>."""
+    import pickle
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from simhand_tpu_torch import native
+    from simhand_tpu_torch.core.joints import JointMap
+    from simhand_tpu_torch.finetune import create_data, optimize_shape, recon, train_shape_net
+    from simhand_tpu_torch.finetune.mano import ManoModel, relative_bone_lengths
+    from simhand_tpu_torch.finetune.shape_net import load_shape_net, pso_fit_shape
+    from simhand_tpu_torch.serving import export
+    from simhand_tpu_torch.train.checkpoint import export_state_dict
+
+    t_phase = time.perf_counter()
+    launches_before = counted_launches()
+    root = native.BUILD_DIR / f"mano_{seed}"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    pkl = str(root / "mano_synthetic.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(synthetic_mano_params(seed), f)
+    mano, mano_cpu = ManoModel(pkl), ManoModel(pkl, device="cpu")
+    require(mano.device.type == "cuda", f"ManoModel built on {mano.device}")
+    perf = {"mano": {}}
+    rng = np.random.default_rng(seed)
+
+    mano_levels = level_chain_mano(pkl)
+    for b in MANO_BATCHES:
+        pose = torch.from_numpy(random_poses(rng, b, 0.5))
+        beta = torch.from_numpy((2.0 * rng.standard_normal((b, 10))).astype(np.float32))
+        pose_c, beta_c = pose.cuda(), beta.cuda()
+        with torch.no_grad():
+            got = [t.cpu() for t in mano(pose_c, beta_c)]
+            want = mano_cpu(pose, beta)
+            err = max(rel_largest(g, w) for g, w in zip(got, want))
+            lv_err = max(rel_largest(g.cpu(), w)
+                         for g, w in zip(mano_levels(pose_c, beta_c), want))
+            ms = cuda_ms(lambda: mano(pose_c, beta_c), MANO_TIMED)
+            lv_ms = cuda_ms(lambda: mano_levels(pose_c, beta_c), MANO_TIMED)
+            ms_again = cuda_ms(lambda: mano(pose_c, beta_c), MANO_TIMED)
+        perf["mano"][f"b{b}"] = {"rel_err": err, "ms": ms, "ms_again": ms_again,
+                                 "level_chain_ms": lv_ms, "level_chain_rel_err": lv_err}
+        print(f"MANO forward B = {b}: {ms:.4f} ms a forward (again after the level chain "
+              f"{ms_again:.4f}); the chain a level at a time {lv_ms:.4f} ms; verts and "
+              f"joints21 against the CPU {err:.2e} of the largest, the level chain's "
+              f"{lv_err:.2e} [limit {MANO_RTOL:.0e}]")
+        require(max(err, lv_err) <= MANO_RTOL,
+                f"the MANO forward at B = {b} is off the CPU's: {err:.2e} / {lv_err:.2e}")
+    del pose_c, beta_c, mano_levels
+
+    sik = str(root / "sik1m")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    create_data.main(["--mano", pkl, "--out", sik, "--seed", str(seed)])
+    secs = time.perf_counter() - t0
+    bones, shapes = np.load(f"{sik}/data_bone.npy"), np.load(f"{sik}/data_shape.npy")
+    require(bones.shape == (SIK1M_TOTAL, 15) and shapes.shape == (SIK1M_TOTAL, 10),
+            f"create_data wrote {bones.shape} / {shapes.shape}")
+    with torch.no_grad():
+        want = relative_bone_lengths(
+            mano_cpu, torch.from_numpy(shapes[:SIK1M_CHECKED].astype(np.float32))).numpy()
+    err = float(np.max(np.abs(bones[:SIK1M_CHECKED] - want) / np.abs(want)))
+    perf["create_data"] = {"seconds": secs, "samples_per_s": SIK1M_TOTAL / secs,
+                           "bones_rel_err": err}
+    print(f"create_data --total {SIK1M_TOTAL}: {secs:.2f} s = {SIK1M_TOTAL / secs:.0f} "
+          f"samples/s (files written); the first {SIK1M_CHECKED} bones against the CPU: rel "
+          f"{err:.2e} [limit {SIK1M_RTOL:.0e}]")
+    require(np.isfinite(bones).all() and err <= SIK1M_RTOL,
+            f"create_data's bones are off relative_bone_lengths on the CPU: {err:.2e}")
+    del bones, shapes
+
+    perf["train_shape_net"] = {}
+    for route, extra in (("data_root", ["--data_root", sik]), ("on_the_fly", [])):
+        out = str(root / f"shape_net_{route}.pt")
+        flags = ["--mano", pkl, "--batch_size", str(SHAPE_BATCH), "--seed", str(seed), *extra]
+        # set-up alone (MANO, ShapeNet's init, SIK1M's load), to take out of
+        # the whole call's time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_shape_net.main([*flags, "--steps", "0"])
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model, losses = train_shape_net.main([*flags, "--steps", str(SHAPE_STEPS), "--out", out])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        step_ms = 1e3 * (secs - setup) / SHAPE_STEPS
+        first, last = float(losses[:SHAPE_WINDOW].mean()), float(losses[-SHAPE_WINDOW:].mean())
+        loaded = load_shape_net(out, "cuda")
+        same = all(torch.equal(a, b) for a, b in zip(loaded.state_dict().values(),
+                                                      model.state_dict().values()))
+        perf["train_shape_net"][route] = {"ms_a_step": step_ms, "seconds": secs,
+                                          "setup_s": setup, "first_mean": first,
+                                          "last_mean": last}
+        print(f"train_shape_net ({route}, B = {SHAPE_BATCH}, {SHAPE_STEPS} steps): "
+              f"{step_ms:.3f} ms a step (the call's {secs:.3f} s less a --steps 0 call's "
+              f"{setup:.3f} s of set-up); loss mean of the first {SHAPE_WINDOW} steps "
+              f"{first:.6f}, of the last {last:.6f}; --out loads strict and equal: {same}")
+        require(np.isfinite(losses).all() and len(losses) == SHAPE_STEPS,
+                f"train_shape_net ({route}): non-finite losses")
+        require(last < first, f"train_shape_net ({route}): the loss did not fall")
+        require(same, f"train_shape_net ({route}): --out differs from the trained model")
+    shape_net_file = str(root / "shape_net_on_the_fly.pt")
+
+    t0 = time.perf_counter()
+    out = optimize_shape.main(["--mano", pkl, "--n", str(OPT_N), "--shapenet", shape_net_file,
+                               "--seed", str(seed)])
+    secs = time.perf_counter() - t0
+    cpu_beta = pso_fit_shape(mano_cpu, out["targets"][0], n_particles=80, n_iters=25, seed=0)
+    pso_err = float(np.abs(out["pso_beta"][0] - cpu_beta).max())
+    maes = {k: float(out[k]) for k in ("pso_mae", "lm_mae", "shapenet_mae")}
+    perf["optimize_shape"] = {"synthetic_s": secs, **maes, "pso_card_vs_cpu": pso_err}
+    print(f"optimize_shape --n {OPT_N}: {secs:.2f} s; bone-length MAE {maes}; PSO's first "
+          f"beta on the card against the CPU {pso_err:.2e} [limit {PSO_ATOL:.0e}]")
+    require(all(math.isfinite(v) for v in maes.values()), f"optimize_shape: MAE {maes}")
+    require(pso_err <= PSO_ATOL, f"PSO on the card is off the CPU's: {pso_err:.2e}")
+
+    pose = torch.from_numpy(random_poses(rng, PRE_JOINTS, 0.4)).cuda()
+    beta = torch.from_numpy((2.0 * rng.standard_normal((PRE_JOINTS, 10))).astype(np.float32))
+    with torch.no_grad():
+        _, j21 = mano(pose, beta.cuda())
+    joints_file, beta_file = str(root / "pre_joints.npy"), str(root / "dl_beta.npy")
+    np.save(joints_file, JointMap().mano_to_freihand(j21.cpu().numpy()))
+    t0 = time.perf_counter()
+    out = optimize_shape.main(["--mano", pkl, "--shapenet", shape_net_file,
+                               "--pre_joints", joints_file, "--out_beta", beta_file])
+    secs = time.perf_counter() - t0
+    saved = np.load(beta_file)
+    perf["optimize_shape"].update(dl_s=secs, dl_error_sum=float(out["per_bone"].sum()))
+    require(saved.shape == (PRE_JOINTS, 10) and np.isfinite(saved).all()
+            and np.isfinite(out["per_bone"]).all(), "optimize_shape --pre_joints: non-finite")
+
+    t0 = time.perf_counter()
+    metrics = recon.main(["--mano", pkl, "--n", str(RECON_N)])
+    perf["recon"] = {"seconds": time.perf_counter() - t0,
+                     **{k: float(v) for k, v in metrics.items()}}
+    require(all(math.isfinite(v) for v in perf["recon"].values()), f"recon: {metrics}")
+
+    serving = native.BUILD_DIR / f"serving_{seed}"
+    artifact = serving / "detnet_bf16.pt2"
+    if not artifact.exists():
+        serving.mkdir(parents=True, exist_ok=True)
+        export_state_dict(serving_detnet(seed), str(serving / "detnet.pth"))
+        export.main(["--surface", "detnet", "--backbone", RESNET, "--side", str(SIDE),
+                     "--pth", str(serving / "detnet.pth"), "--out", str(artifact)])
+        print(f"demo: exported {artifact} (phase 18's artifact was absent)")
+    apply, meta = export.load_artifact(str(artifact))
+    require(meta["surface"] == "detnet" and meta["side"] == SIDE, f"artifact header {meta}")
+    frames = rng.uniform(-0.5, 0.5, (DEMO_FRAMES, SIDE, SIDE, 3)).astype(np.float32)
+    perf["demo"] = {
+        "pso": demo_route(mano, mano_cpu, apply, None, frames, "pso"),
+        "shape_net": demo_route(mano, mano_cpu, apply, load_shape_net(shape_net_file, "cuda"),
+                                frames, "shape_net")}
+
+    launches = {"+".join(k): n - launches_before[k] for k, n in counted_launches().items()}
+    perf["kernel_launches"] = launches
+    require(not any(launches.values()), f"a kernel of the record launched in phase 22: {launches}")
+    perf["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 22 (the MANO side): {perf['seconds']:.1f} s; kernel launches {launches}")
+    return perf
+
+
 def processes_below(pid: int) -> dict[int, str]:
     """Every process below ``pid`` (children, theirs, ...) by pid, with its
     command, from the parent links in /proc."""
@@ -4865,6 +5245,7 @@ def main() -> int:
     phase_19_s = time.perf_counter() - t19
     print(f"phase 19 (mining and the loader): {phase_19_s:.1f} s")
     sharded_perf, sharded_launches = sharded_phase(args.seed)
+    mano_perf = mano_side_phase(args.seed)
     left = stop_processes_left()
     require(not left, f"processes left running after the phases: {left}")
 
@@ -4951,7 +5332,7 @@ def main() -> int:
                       "serving": serve_perf, "server": server_perf,
                       "serving_entry_points": entry_serving_perf,
                       "mining": mining_perf, "loader": loader_perf,
-                      "data_parallel": dp_perf, "sharded": sharded_perf,
+                      "data_parallel": dp_perf, "sharded": sharded_perf, "mano": mano_perf,
                       "phase_19_s": phase_19_s, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,9 +14,15 @@ space-to-depth stem's as ``encoder.conv1_s2d``; the head's are
 ``projection_head.fc1``, ``.bn1`` and ``.fc2``. The result loads with
 ``strict=True``. ``detnet_from_flax_variables`` does the same for the JAX
 ``DetNet`` (the mapping of ``simhand_tpu/finetune/torch_port_detnet.py``),
-and the ``load_*`` functions read ``.pth`` files with strict loads.
+``shape_net_from_flax_params`` for the JAX ``ShapeNet``, and the ``load_*``
+functions read ``.pth`` files with strict loads. ``read_shape_net`` reads a
+ShapeNet file of either package: the port's ``torch.save``d state dict, or
+the flax msgpack the JAX trainer writes (decoded here, ``msgpack`` imported
+when such a file is read).
 """
 from __future__ import annotations
+
+import zipfile
 
 import numpy as np
 import torch
@@ -131,3 +137,48 @@ def load_detnet_state_dict(model: torch.nn.Module, sd: dict) -> None:
         sd = {f"encoder.resnet.{k[len('encoder.'):]}" if k.startswith("encoder.") else k: v
               for k, v in sd.items()}
     model.load_state_dict(sd, strict=True)
+
+
+def shape_net_from_flax_params(params: dict) -> dict[str, torch.Tensor]:
+    """flax ``params`` of the JAX ``ShapeNet`` -> a state dict of the port's
+    ``finetune.shape_net.ShapeNet`` (the same layer names): a Dense kernel
+    (in, out) becomes a ``Linear`` weight (out, in)."""
+    sd = {}
+    for (*modules, leaf), value in _paths(params):
+        name = ".".join(modules)
+        if leaf == "kernel":
+            sd[f"{name}.weight"] = _tensor(np.asarray(value).T)
+        elif leaf == "bias":
+            sd[f"{name}.bias"] = _tensor(value)
+        else:
+            raise ValueError(f"unexpected param leaf {(*modules, leaf)}")
+    return sd
+
+
+# flax.serialization's msgpack extension types: an ndarray and a numpy scalar,
+# each packed as (shape, dtype name, C-order bytes)
+_FLAX_NDARRAY, _FLAX_NPSCALAR = 1, 3
+
+
+def read_flax_msgpack(data: bytes) -> dict:
+    """The tree ``flax.serialization.to_bytes`` wrote, with numpy leaves.
+    Arrays that flax split into chunks (over 1 GiB) are not read."""
+    import msgpack
+
+    def ext_hook(code, payload):
+        if code not in (_FLAX_NDARRAY, _FLAX_NPSCALAR):
+            raise ValueError(f"unsupported msgpack extension type {code}")
+        shape, dtype, buf = msgpack.unpackb(payload, raw=True)
+        arr = np.frombuffer(buf, dtype=np.dtype(dtype.decode())).reshape(shape)
+        return arr if code == _FLAX_NDARRAY else arr[()]
+
+    return msgpack.unpackb(data, ext_hook=ext_hook, raw=False)
+
+
+def read_shape_net(path: str) -> dict[str, torch.Tensor]:
+    """A ShapeNet file as a state dict of the port's ``ShapeNet``: the port's
+    own (a zip archive of ``torch.save``) or the JAX package's flax msgpack."""
+    if zipfile.is_zipfile(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    with open(path, "rb") as f:
+        return shape_net_from_flax_params(read_flax_msgpack(f.read()))

@@ -25,6 +25,10 @@ It is split in two, as the pre-training augmentation is:
     blur, the colour jitter in its drawn order, the affine crop), with no
     ``cv2``. ``detnet_batch_iterator(..., device=...)`` yields the JAX
     package's keys with ``img`` on that device.
+
+``SIK1M`` reads ShapeNet's (relative bone length, MANO beta) pairs, bit for
+bit the JAX package's samples; ``create_sik1m_data`` writes them, the betas
+drawn and the bones computed on the MANO model's device.
 """
 from __future__ import annotations
 
@@ -472,3 +476,73 @@ def detnet_batch_iterator(dataset, builder: DetnetSampleBuilder, batch_size: int
         if all("tips_3d" in s for s in samples):
             batch["tips_3d"] = np.stack([s["tips_3d"] for s in samples])
         yield batch
+
+
+# --------------------------------------------------------------------------
+# SIK1M: (relative bone length, MANO beta) pairs for ShapeNet training
+# --------------------------------------------------------------------------
+
+# 0.1 x the per-bone std of relative bone lengths, added as train-time
+# noise (reference: minimal-hand/datasets/SIK1M.py:56-60; bone 6 — the
+# reference bone itself — has zero std by construction).
+SIK1M_NOISE = np.array(
+    [0.02906406, 0.02663224, 0.01769793, 0.0274501, 0.02573783, 0.0222863,
+     0.0, 0.02855567, 0.02330295, 0.0253288, 0.0266308, 0.02495683,
+     0.03685857, 0.02430637, 0.02349446], np.float64,
+) / 10.0
+
+
+class SIK1M:
+    """npy-pair dataset ``data_bone.npy`` (N, 15) / ``data_shape.npy``
+    (N, 10) with an 80/20 head/tail split and Gaussian bone-length noise
+    on every fetch (reference: minimal-hand/datasets/SIK1M.py:12-79).
+    """
+
+    def __init__(self, data_root: str, data_split: str = "train",
+                 split_ratio: float = 0.8, seed: int = 0):
+        self.bone_len = np.load(os.path.join(data_root, "data_bone.npy"))
+        self.shape = np.load(os.path.join(data_root, "data_shape.npy"))
+        n = self.shape.shape[0]
+        n_train = int(n * split_ratio)
+        if data_split == "train":
+            self.index = np.arange(n_train)
+        elif data_split in ("val", "test"):
+            self.index = np.arange(n_train, n)
+        else:
+            self.index = np.arange(n)
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.index)
+
+    def __getitem__(self, i: int) -> dict:
+        j = self.index[i]
+        noise = SIK1M_NOISE * self._rng.standard_normal(15)
+        return {
+            "rel_bone_len": self.bone_len[j] + noise,
+            "shape": self.shape[j].copy(),
+        }
+
+
+def create_sik1m_data(mano, total: int, out_dir: str,
+                      batch: int = 4096, seed: int = 0) -> None:
+    """Generates the SIK1M npy pair: beta ~ 3*N(0,1) -> MANO relative bone
+    lengths, written as data_bone.npy / data_shape.npy (reference:
+    minimal-hand/create_data.py:55-113). The betas come from a
+    ``torch.Generator`` on the MANO model's device, ``batch`` at a time, and
+    the pairs stay there until they are written."""
+    from simhand_tpu_torch.finetune.mano import relative_bone_lengths
+
+    dev = mano.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    data_bone = torch.empty((total, 15), device=dev)
+    data_shape = torch.empty((total, 10), device=dev)
+    with torch.no_grad():
+        for t0 in range(0, total, batch):
+            t1 = min(t0 + batch, total)
+            beta = 3.0 * torch.randn((t1 - t0, 10), generator=gen, device=dev)
+            data_bone[t0:t1] = relative_bone_lengths(mano, beta)
+            data_shape[t0:t1] = beta
+    os.makedirs(out_dir, exist_ok=True)
+    np.save(os.path.join(out_dir, "data_bone.npy"), data_bone.cpu().double().numpy())
+    np.save(os.path.join(out_dir, "data_shape.npy"), data_shape.cpu().double().numpy())

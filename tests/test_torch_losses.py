@@ -59,7 +59,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     names = {str(f.relative_to(REPO)) for f in files}
     assert {f"simhand_tpu_torch/finetune/{m}.py" for m in (
         "maps", "image_stage", "datasets", "registry", "detnet", "detloss", "evaluation",
-        "train", "evaluate")} | {"simhand_tpu_torch/models/heads.py",
+        "train", "evaluate", "mano", "aik", "shape_net", "lm_fit", "recon", "smoother",
+        "optimize_shape", "train_shape_net", "create_data", "demo", "render")} | {"simhand_tpu_torch/models/heads.py",
                                  "simhand_tpu_torch/data/sources/freihand.py",
                                  "simhand_tpu_torch/experiments/evaluation.py",
                                  "simhand_tpu_torch/experiments/downstream.py",
