@@ -334,6 +334,40 @@
    the card's verts). Prints frames/s, the ms a frame of the forward, the
    smoother, the shape step, AIK and MANO (each stage synchronized), and
    the phase's seconds. It imports no cv2.
+23. after 22, the workflow checks (``simhand_tpu_torch.transfer_check``)
+   under build/workflow_<seed>, no cv2 imported and no process of the
+   phase left running at its end. A: the grand loop at full width
+   (``run_grand_loop``): the annotation of CACHE_IMAGES synthetic 224x224
+   hands written without frames, mined on the card (the mined top-1 of
+   every hand == ``top1_cross_video``'s), the crop cache built with the
+   mined positives, ``experiments.main`` on it at ResNet-50, B = 256
+   pairs, simhand_w with RECIPES.md's flags and --color_jitter,
+   --bn_variant stop_grad, --use_pallas --device_augment for two epochs
+   (16 steps: finite losses, #2 and #4 launched once on every step), its
+   --export_torch file; ``finetune.train.main --pretrain <export>
+   --lr_strategy DLR`` on synthetic-hand (ResNet-50, B = 128,
+   --bn_variant fused_pallas, 8 steps: the detnet's encoder equal to the
+   export bit for bit before its first step, every det_* part of every
+   step finite, #9 launched 53 times on every step); ``finetune.evaluate``
+   on its checkpoint (finite metrics). Prints each stage's seconds, and a
+   random-init fine-tune at the same budget beside the pretrained one. B:
+   the eight experiment types at full width (ResNet-50, B = 256 pairs,
+   use_pallas, the flagship weights for the weighted three) on one raw
+   batch of phase 3's cache each, augmented on the card: step 0's loss and
+   dL/dprojections against the dense route (rel 1e-4, 1e-3 of the
+   largest), then two steps with #1/#3 (the plain five) or #2/#4 (the
+   weighted three) launched once a step and no other NT-Xent kernel; then
+   the entry point (``experiments.main``, -log_interval step) for two
+   steps on that cache for each of the six types no earlier phase runs
+   (simclr, simclr_w, peclr, peclr_w, simhand, simhand_vis): finite
+   losses, the same launches a step. C: ``run_transfer_check`` at corpus
+   seed 0 and B = 16 (the dense route) at the reference's cells: rn18
+   120/60 random, exact and stop_grad (stop_grad's lossH below 0.98 x
+   random's); rn18 60/60 simhand_w against simclr (printed); rn50 60/60
+   random, exact and stop_grad (both below 0.98 x random's). Prints every
+   arm's lossH_final, hm_pck, hm_pck_loose and hm_dist beside the
+   reference's XLA-CPU figures on its JPEG route, each part's seconds and
+   the phase's.
 
 Any failure ends the run with a non-zero exit code. The last line of the
 output is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -5091,6 +5125,296 @@ def mano_side_phase(seed: int) -> dict:
     return perf
 
 
+# phase 23, the workflow checks, after phase 22. A: the grand loop at full
+# width, its pre-training GL_STEPS (two epochs of CACHE_IMAGES // PAIRS
+# batches) and its fine-tune GL_FT_STEPS at phase 17's batch. B: the eight
+# experiment types on phase 3's cache, PLAIN_STEPS steps each, and the entry
+# point for ENTRY_TYPE_STEPS steps of each type no earlier phase runs. C: the
+# transfer miniature at scripts/transfer_check.py's batch and the cells of
+# SCALING.md:362-373 (bn_grid.py at corpus seed 0) and ROUND3.md:91,119: label,
+# backbone, pre-training and fine-tune steps, the pretrained arms as
+# (experiment type, bn_variant), and the arms whose lossH must end below
+# TRANSFER_MARGIN x the random arm's (a cell with none runs no random arm)
+GL_STEPS, GL_FT_STEPS = 2 * (CACHE_IMAGES // PAIRS), 8
+GL_PRETRAIN_FLAGS = ("--weight_type", "linear", "--diff_type", "mpjpe", "--pos_neg", "pos_neg",
+                     "--joints_type", "original", "--color_jitter", "--use_pallas",
+                     "--bn_variant", "stop_grad")
+ENTRY_TYPES = ("simclr", "simclr_w", "peclr", "peclr_w", "simhand", "simhand_vis")
+ENTRY_TYPE_STEPS = 2
+TRANSFER_BATCH, TRANSFER_MARGIN = 16, 0.98
+TRANSFER_CELLS = (
+    ("rn18_120_60", "18", 120, 60,
+     {"exact": ("simhand_w", "exact"), "stop_grad": ("simhand_w", "stop_grad")}, ("stop_grad",)),
+    ("rn18_60_60", "18", 60, 60,
+     {"simhand_w": ("simhand_w", "exact"), "simclr": ("simclr", "exact")}, ()),
+    ("rn50_60_60", "50", 60, 60,
+     {"exact": ("simhand_w", "exact"), "stop_grad": ("simhand_w", "stop_grad")},
+     ("exact", "stop_grad")),
+)
+# the reference's lossH_final at the same cells: XLA-CPU on the JPEG route
+# of the JAX script (its corpus's frames cropped with cv2): SCALING.md:366-372
+# (round 5, a one-core host) and the rn18 60/60 pair ROUND3.md:91,119 (round
+# 3, a multi-core host, whose random arm read 0.406)
+TRANSFER_REFERENCE = {"rn18_120_60": {"random": 0.3945, "exact": 0.4656, "stop_grad": 0.2878},
+                      "rn18_60_60": {"simhand_w": 0.323, "simclr": 0.432},
+                      "rn50_60_60": {"random": 0.4136, "exact": 0.2882, "stop_grad": 0.2795}}
+
+
+def launch_counting(make, kernels, log: list):
+    """``make`` wrapped: each step it makes appends (the launches of
+    ``kernels`` in that step by name, its metrics as floats) to ``log``."""
+    def wrapped(*a, **k):
+        step = make(*a, **k)
+
+        def run(state, batch):
+            before = {fn.__name__: fn.launches for fn in kernels}
+            state, metrics = step(state, batch)
+            log.append(({fn.__name__: fn.launches - before[fn.__name__] for fn in kernels},
+                        {name: float(v) for name, v in metrics.items()}))
+            return state, metrics
+
+        return run
+
+    return wrapped
+
+
+def grand_loop_part(seed: int, base) -> dict:
+    """Part A of phase 23: ``run_grand_loop`` at full width with its checks,
+    then a random-init fine-tune at the same budget."""
+    import torch
+
+    from simhand_tpu_torch import transfer_check as T
+    from simhand_tpu_torch.experiments import main as entry
+    from simhand_tpu_torch.finetune import train as ft
+    from simhand_tpu_torch.losses import ntxent_kernels as K
+    from simhand_tpu_torch.models import fused_bn as FB
+
+    pre_log, ft_log, landed = [], [], []
+    real_make, real_ft_make = entry.make_train_step, ft.make_detnet_train_step
+    workdir = base / "grand_loop"
+    export = workdir / "encoder_pretrained.pth"
+
+    def landing_make(model, *a, **k):
+        # the export, bit for bit, in the detnet before its first step
+        sd = torch.load(export, weights_only=True)
+        enc = {name: v for name, v in model.encoder.resnet.state_dict().items()
+               if not name.endswith("num_batches_tracked")}
+        landed.append(sd.keys() == enc.keys()
+                      and all(torch.equal(sd[name], enc[name].cpu()) for name in sd))
+        return launch_counting(real_ft_make, FB.KERNELS, ft_log)(model, *a, **k)
+
+    entry.make_train_step = launch_counting(real_make, K.KERNELS, pre_log)
+    ft.make_detnet_train_step = landing_make
+    try:
+        record = T.run_grand_loop(
+            str(workdir), images=CACHE_IMAGES, batch_size=PAIRS, resnet_size=RESNET,
+            pretrain_steps=GL_STEPS, finetune_steps=GL_FT_STEPS,
+            extra_pretrain_args=(*GL_PRETRAIN_FLAGS, "-seed", str(seed)), device="cuda",
+            finetune_batch_size=FT_BATCH, extra_finetune_args=("--bn_variant", "fused_pallas"),
+            seed=seed)
+    finally:
+        entry.make_train_step, ft.make_detnet_train_step = real_make, real_ft_make
+    mining = record["mining"]
+    mismatch = int((mining["positives"] != mining["oracle"]).sum())
+    seconds = {name: r["seconds"] for name, r in record.items()}
+    print(f"grand loop: stage seconds {seconds}; mined top-1 against top1_cross_video: "
+          f"{mismatch} of {CACHE_IMAGES} differ")
+    pre_losses = [m["contrastive_loss"] for _, m in pre_log]
+    print(f"grand loop pre-training ({record['pretrain']['step']} steps): losses {pre_losses}; "
+          f"launches a step {[n for n, _ in pre_log]}")
+    ft_parts = [m for _, m in ft_log]
+    print(f"grand loop fine-tune: det_total {[p['det_total'] for p in ft_parts]}; #9 a step "
+          f"{[n['bn_backward_reduces'] for n, _ in ft_log]}; export landed {landed}; metrics "
+          f"{ {k: v for k, v in record['finetune'].items() if k != 'out_dir'} }")
+    print(f"grand loop evaluate: {record['evaluate']}")
+    require(mismatch == 0, f"the mined positives differ from the oracle at {mismatch} hands")
+    require(len(pre_log) == GL_STEPS and all(math.isfinite(v) for v in pre_losses),
+            f"grand loop pre-training: {len(pre_log)} steps, losses {pre_losses}")
+    require(all(n["weighted_ntxent_denominator"] == 1 and n["weighted_grad_rows"] == 1
+                and n["ntxent_denominator"] == n["ntxent_grad"] == 0 for n, _ in pre_log),
+            f"#2/#4 not launched once on every pre-training step: {[n for n, _ in pre_log]}")
+    require(landed == [True], f"the export did not land bit for bit in the detnet: {landed}")
+    require(len(ft_log) == GL_FT_STEPS
+            and all(math.isfinite(v) for p in ft_parts for v in p.values()),
+            f"grand loop fine-tune: {len(ft_log)} steps, parts {ft_parts}")
+    require(all(n["bn_backward_reduces"] == FUSED_BN_PER_STEP for n, _ in ft_log),
+            f"#9 not launched {FUSED_BN_PER_STEP} times on every fine-tune step: "
+            f"{[n for n, _ in ft_log]}")
+    require(all(math.isfinite(v) for v in record["evaluate"].values() if isinstance(v, float)),
+            f"non-finite evaluation {record['evaluate']}")
+
+    # a random-init fine-tune at the same budget, printed beside the pretrained one
+    t0 = time.perf_counter()
+    random_dir = str(base / "grand_loop_random")
+    ft.main(T.finetune_argv(random_dir, GL_FT_STEPS, FT_BATCH, resnet_size=RESNET)
+            + ["--bn_variant", "fused_pallas"], device="cuda")
+    random_metrics = T.read_metrics(random_dir)
+    random_s = time.perf_counter() - t0
+    print(f"grand loop: fine-tune from the export {record['finetune']['lossH_final']:.4f} "
+          f"lossH against {random_metrics['lossH_final']:.4f} from a random init at the same "
+          f"budget ({GL_FT_STEPS} steps; {random_s:.1f} s)")
+    return {"seconds": seconds, "mined_mismatch": mismatch, "pretrain_losses": pre_losses,
+            "pretrain_launches": [n for n, _ in pre_log],
+            "finetune_det_total": [p["det_total"] for p in ft_parts],
+            "finetune_launches": [n["bn_backward_reduces"] for n, _ in ft_log],
+            "finetune": {k: v for k, v in record["finetune"].items() if k != "out_dir"},
+            "evaluate": record["evaluate"], "random_init": random_metrics,
+            "random_init_s": random_s}
+
+
+def experiment_types_part(seed: int, base) -> dict:
+    """Part B of phase 23: the eight experiment types on the kernel route
+    at full width, step 0 against the dense route and PLAIN_STEPS steps
+    each on one batch of phase 3's cache augmented on the card; then the
+    entry point for ENTRY_TYPE_STEPS steps of each of ENTRY_TYPES."""
+    import torch
+
+    from simhand_tpu_torch import native
+    from simhand_tpu_torch.data import augment as A
+    from simhand_tpu_torch.data.cache import CachedHand100MSource
+    from simhand_tpu_torch.data.pipeline import PretrainDataset, batch_iterator
+    from simhand_tpu_torch.experiments import main as entry
+    from simhand_tpu_torch.losses import ntxent_kernels as K
+    from simhand_tpu_torch.models.contrastive import _WEIGHTED, EXPERIMENT_TYPES
+    from simhand_tpu_torch.train import make_train_step
+
+    def kernels_of(etype: str) -> tuple[str, str]:
+        return (("weighted_ntxent_denominator", "weighted_grad_rows") if etype in _WEIGHTED
+                else ("ntxent_denominator", "ntxent_grad"))
+
+    def once_a_step(etype: str, launches: dict) -> bool:
+        return all(n == (name in kernels_of(etype)) for name, n in launches.items())
+
+    cache = native.BUILD_DIR / f"cache_fed_{seed}"
+    source = CachedHand100MSource(str(cache))
+    flags, params = augment_flag_sets()["main"], A.AugmentParams()
+    state = new_state(seed)
+    out = {"types": {}, "entry_point": {}}
+    t0 = time.perf_counter()
+    for etype in EXPERIMENT_TYPES:
+        batches = batch_iterator(PretrainDataset(source, etype, flags, params), PAIRS,
+                                 seed=seed, raw=True)
+        try:
+            raw = {k: torch.from_numpy(v).cuda() for k, v in next(batches).items()}
+        finally:
+            batches.close()
+        views = A.prepare_views(raw, A.seeded_generator("cuda", seed), flags, params, SIDE)
+        cfg = step_config(experiment_type=etype)
+        compare_routes(state, views, cfg, f"{etype} step 0")
+        log = []
+        step = launch_counting(make_train_step, K.KERNELS, log)(state.model, cfg)
+        state, losses = run_steps(step, state, views, etype, steps=PLAIN_STEPS)
+        require(all(once_a_step(etype, n) for n, _ in log),
+                f"{etype}: the NT-Xent launches a step {[n for n, _ in log]}, not one each "
+                f"of {kernels_of(etype)}")
+        out["types"][etype] = {"losses": losses, "launches": [n for n, _ in log]}
+        print(f"experiment type {etype}: losses {losses}; launches a step "
+              f"{[n for n, _ in log]}")
+    del state
+    out["types_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    real_make = entry.make_train_step
+    try:
+        for etype in ENTRY_TYPES:
+            log = []
+            entry.make_train_step = launch_counting(real_make, K.KERNELS, log)
+            argv = ["--experiment_type", etype, "--crop", "--resize", "--rotate",
+                    "-sources", "synthetic", "--cache_dir", str(cache), "--device_augment",
+                    "--use_pallas", "-batch_size", str(PAIRS), "-resnet_size", RESNET,
+                    "-epochs", "1", "--max_steps", str(ENTRY_TYPE_STEPS),
+                    "-log_interval", "step", "-experiment_name", f"types_{etype}",
+                    "-seed", str(seed)]
+            if etype in _WEIGHTED:
+                argv += ["--weight_type", "linear", "--diff_type", "mpjpe",
+                         "--pos_neg", "pos_neg"]
+            entry.main(argv, device="cuda")
+            losses = [m["contrastive_loss"] for _, m in log]
+            print(f"entry point {etype}: losses {losses}; launches a step "
+                  f"{[n for n, _ in log]}")
+            require(len(log) == ENTRY_TYPE_STEPS and all(math.isfinite(v) for v in losses),
+                    f"entry point {etype}: {len(log)} steps, losses {losses}")
+            require(all(once_a_step(etype, n) for n, _ in log),
+                    f"entry point {etype}: NT-Xent launches a step {[n for n, _ in log]}")
+            out["entry_point"][etype] = {"losses": losses, "launches": [n for n, _ in log]}
+    finally:
+        entry.make_train_step = real_make
+    out["entry_point_s"] = time.perf_counter() - t0
+    return out
+
+
+def transfer_part(base) -> tuple[dict, list]:
+    """Part C of phase 23: ``run_transfer_check`` at TRANSFER_CELLS. Returns
+    every arm's metrics by cell and the required comparisons that missed
+    (phase 23 fails on any, after it has printed every cell)."""
+    from simhand_tpu_torch.transfer_check import run_transfer_check
+
+    cells, missed = {}, []
+    for label, rn, pre, ft_steps, arms, required in TRANSFER_CELLS:
+        t0 = time.perf_counter()
+        cell = {}
+        for i, (arm, (etype, bn)) in enumerate(arms.items()):
+            res = run_transfer_check(str(base / f"transfer_{label}_{arm}"), pre, ft_steps,
+                                     TRANSFER_BATCH, bn, experiment_type=etype,
+                                     skip_random=not required or i > 0, resnet_size=rn,
+                                     device="cuda")
+            if res["random"] is not None:
+                cell["random"] = res["random"]
+            cell[arm] = res["pretrained"]
+        seconds = time.perf_counter() - t0
+        ref = TRANSFER_REFERENCE[label]
+        for arm, m in cell.items():
+            print(f"transfer {label} {arm}: lossH_final {m['lossH_final']:.4f} hm_pck "
+                  f"{m['hm_pck']:.4f} hm_pck_loose {m.get('hm_pck_loose', float('nan')):.4f} "
+                  f"hm_dist {m.get('hm_dist', float('nan')):.4f}; the reference's lossH "
+                  f"{ref.get(arm)} (XLA-CPU, JPEG route)")
+        for arm in required:
+            limit = TRANSFER_MARGIN * cell["random"]["lossH_final"]
+            if not cell[arm]["lossH_final"] < limit:
+                missed.append(f"{label} {arm}: lossH {cell[arm]['lossH_final']:.4f} not below "
+                              f"{TRANSFER_MARGIN} x random's ({limit:.4f})")
+        print(f"transfer {label}: {seconds:.1f} s")
+        cells[label] = {**cell, "seconds": seconds}
+    return cells, missed
+
+
+def workflow_phase(seed: int) -> dict:
+    """Phase 23: the grand loop, the eight experiment types and the transfer
+    miniature on the card, under build/workflow_<seed>."""
+    import importlib
+    import os
+    import shutil
+
+    from simhand_tpu_torch import constants, native
+
+    t_phase = time.perf_counter()
+    before = set(processes_below(os.getpid()))
+    base = native.BUILD_DIR / f"workflow_{seed}"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    os.environ["BASE_PATH"] = str(base / "runs")
+    importlib.reload(constants)
+    perf = {}
+    t0 = time.perf_counter()
+    perf["grand_loop"] = grand_loop_part(seed, base)
+    perf["grand_loop_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    perf["experiment_types"] = experiment_types_part(seed, base)
+    perf["experiment_types_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    perf["transfer"], missed = transfer_part(base)
+    perf["transfer_s"] = time.perf_counter() - t0
+    left = {pid: cmd for pid, cmd in processes_below(os.getpid()).items() if pid not in before}
+    perf["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 23 (grand loop, experiment types, transfer): {perf['seconds']:.1f} s; grand "
+          f"loop {perf['grand_loop_s']:.1f} s, types {perf['experiment_types_s']:.1f} s, "
+          f"transfer {perf['transfer_s']:.1f} s")
+    require(sys.modules.get("cv2") is None, "phase 23 imported cv2")
+    require(not left, f"processes of phase 23 still running at its end: {left}")
+    require(not missed, f"transfer cells missed: {missed}")
+    return perf
+
+
 def processes_below(pid: int) -> dict[int, str]:
     """Every process below ``pid`` (children, theirs, ...) by pid, with its
     command, from the parent links in /proc."""
@@ -5246,6 +5570,7 @@ def main() -> int:
     print(f"phase 19 (mining and the loader): {phase_19_s:.1f} s")
     sharded_perf, sharded_launches = sharded_phase(args.seed)
     mano_perf = mano_side_phase(args.seed)
+    workflow_perf = workflow_phase(args.seed)
     left = stop_processes_left()
     require(not left, f"processes left running after the phases: {left}")
 
@@ -5333,6 +5658,7 @@ def main() -> int:
                       "serving_entry_points": entry_serving_perf,
                       "mining": mining_perf, "loader": loader_perf,
                       "data_parallel": dp_perf, "sharded": sharded_perf, "mano": mano_perf,
+                      "workflow": workflow_perf,
                       "phase_19_s": phase_19_s, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,9 +5,10 @@ linked across "videos" by an exact top-1 MPJPE search.
 
 The numpy half (``render_hands``, ``top1_cross_video`` and the in-memory
 ``SyntheticHandSource``) needs no ``cv2``: it builds a corpus and its crop
-cache on a machine without it. ``generate_synthetic_hand100m`` writes the
-JAX package's on-disk dataset (JPEG frames and the annotation JSON) from
-the same draws, and imports ``cv2`` inside.
+cache on a machine without it, and so does ``write_synthetic_annotation``,
+which writes the annotation JSON of the JAX package's on-disk dataset.
+``generate_synthetic_hand100m`` writes that dataset whole (the JPEG frames
+beside the annotation) from the same draws, and imports ``cv2`` inside.
 """
 from __future__ import annotations
 
@@ -81,12 +82,15 @@ class SyntheticHandSource:
     """An in-memory Hand100M-style source of the synthetic corpus, its
     images rendered at the crop side: the sample schema of the JAX
     package's ``Hand100MSource`` (pixel joints, pseudo depth 1, identity K,
-    left hands flipped), with positives from ``top1_cross_video``."""
+    left hands flipped), with positives from ``top1_cross_video``, or the
+    ``(positive_idx, distance)`` arrays given (a mining job's)."""
 
-    def __init__(self, num_images: int, num_videos: int = 8, side: int = 224, seed: int = 0):
+    def __init__(self, num_images: int, num_videos: int = 8, side: int = 224, seed: int = 0,
+                 positives: tuple[np.ndarray, np.ndarray] | None = None):
         self.images, joints, left = render_hands(num_images, side, seed)
-        self.positive_idx, self.distance = top1_cross_video(
-            joints[:, :, :2], np.arange(num_images) % num_videos)
+        if positives is None:
+            positives = top1_cross_video(joints[:, :, :2], np.arange(num_images) % num_videos)
+        self.positive_idx, self.distance = (np.asarray(a) for a in positives)
         self.joints_raw = joints.copy()
         self.joints_raw[left, :, 0] = 1.0 - self.joints_raw[left, :, 0]
         self.images[left] = self.images[left, :, ::-1]
@@ -112,7 +116,7 @@ class SyntheticHandSource:
         }
 
 
-def generate_synthetic_hand100m(
+def write_synthetic_annotation(
     root_dir: str,
     num_images: int = 64,
     num_videos: int = 8,
@@ -120,18 +124,13 @@ def generate_synthetic_hand100m(
     source: str = "100doh",
     scale: str = "smoke",
     seed: int = 0,
-) -> str:
-    """Writes a synthetic Hand100M dataset under ``root_dir`` (JPEG frames
-    and the annotation JSON, as the JAX package writes them for the same
-    arguments). Returns the annotation JSON path."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise RuntimeError("synthetic dataset generation needs cv2") from e
-
+) -> tuple[str, np.ndarray]:
+    """Writes the annotation JSON of the synthetic Hand100M dataset under
+    ``root_dir`` (the v1-1 schema, positives from ``top1_cross_video``), as
+    ``generate_synthetic_hand100m`` writes it for the same arguments, but no
+    frame: it needs no ``cv2``. Returns the annotation path and the images
+    (N, side, side, 3) uint8 of the frames it names."""
     sub = {"ego4d": "Ego4D", "100doh": "100DOH"}[source.lower()]
-    frames_dir = os.path.join(root_dir, "frames", sub)
-    os.makedirs(frames_dir, exist_ok=True)
     images, joints, left = render_hands(num_images, side, seed)
     video_ids = np.arange(num_images) % num_videos
     top1, dist = top1_cross_video(joints[:, :, :2], video_ids)
@@ -139,8 +138,6 @@ def generate_synthetic_hand100m(
     records, annotations = [], []
     for i in range(num_images):
         file_name = os.path.join("frames", sub, f"video{video_ids[i]:03d}_frame{i:06d}.jpg")
-        cv2.imwrite(os.path.join(root_dir, file_name),
-                    cv2.cvtColor(images[i], cv2.COLOR_RGB2BGR))
         records.append({"id": i, "file_name": file_name, "width": side, "height": side})
         xy = joints[i, :, :2] * side
         x1, y1 = xy.min(axis=0)
@@ -161,4 +158,32 @@ def generate_synthetic_hand100m(
     os.makedirs(os.path.dirname(anno_path), exist_ok=True)
     with open(anno_path, "w") as f:
         json.dump({"images": records, "annotations": annotations}, f)
+    return anno_path, images
+
+
+def generate_synthetic_hand100m(
+    root_dir: str,
+    num_images: int = 64,
+    num_videos: int = 8,
+    side: int = 256,
+    source: str = "100doh",
+    scale: str = "smoke",
+    seed: int = 0,
+) -> str:
+    """Writes a synthetic Hand100M dataset under ``root_dir`` (JPEG frames
+    and the annotation JSON, as the JAX package writes them for the same
+    arguments). Returns the annotation JSON path."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError("synthetic dataset generation needs cv2") from e
+
+    anno_path, images = write_synthetic_annotation(
+        root_dir, num_images, num_videos, side, source, scale, seed)
+    with open(anno_path) as f:
+        records = json.load(f)["images"]
+    for record, image in zip(records, images):
+        path = os.path.join(root_dir, record["file_name"])
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        cv2.imwrite(path, cv2.cvtColor(image, cv2.COLOR_RGB2BGR))
     return anno_path

@@ -157,7 +157,12 @@ class ManoModel(nn.Module):
 def relative_bone_lengths(mano: ManoModel, beta: torch.Tensor) -> torch.Tensor:
     """15 bone lengths of the shaped skeleton, normalized by the
     wrist->middle_mcp reference bone, in the reference's reorder
-    (minimal-hand/model/shape_net.py:49-81 new_cal_ref_bone)."""
+    (minimal-hand/model/shape_net.py:49-81 new_cal_ref_bone).
+
+    A departure from the JAX package: its gradient here is NaN (the wrist's
+    zero "bone" through sqrt'(0), ``simhand_tpu/finetune/mano.py:148-162``,
+    so its ``sik_loss`` trainer's parameters are NaN after one step); this
+    one is finite, as the reference's ``torch.norm`` is."""
     j = mano.shaped_joints(beta)                                            # (B,16,3)
     rel = j - j[:, mano._bone_parent]
     ref = torch.linalg.norm(j[:, 4] - j[:, 0], dim=-1, keepdim=True)

@@ -21,11 +21,14 @@ import simhand_tpu.finetune.detnet as jdetnet
 import simhand_tpu.finetune.evaluate as jevaluate
 import simhand_tpu.finetune.train as jtrain
 from simhand_tpu.finetune import evaluation as jev
+from simhand_tpu_torch import transfer_check
 from simhand_tpu_torch.convert import detnet_from_flax_variables
 from simhand_tpu_torch.finetune import evaluate as tevaluate
 from simhand_tpu_torch.finetune import evaluation as tev
 from simhand_tpu_torch.finetune import train as ttrain
-from simhand_tpu_torch.train.checkpoint import CheckpointManager
+from simhand_tpu_torch.models.resnet import RESNETS
+from simhand_tpu_torch.train.checkpoint import CheckpointManager, export_state_dict
+from simhand_tpu_torch.train.state import init_weights
 
 pytest.importorskip("cv2")
 torch.set_num_threads(2)
@@ -93,7 +96,10 @@ def test_heatmap_metrics_match():
 @pytest.fixture(scope="module")
 def mains(tmp_path_factory):
     """JAX's train main on one device, then the port's from the same
-    initial weights, each recording its per-step losses."""
+    initial weights, each recording its per-step losses; then the same for
+    each fine-tune arm of the port's transfer check (its argv at 2 steps and
+    B = 16: from a random init, and --pretrain an encoder export under
+    --lr_strategy DLR), whose JAX runs reuse what the first compiled."""
     base = tmp_path_factory.mktemp("mains")
     mp = pytest.MonkeyPatch()
     devices = jax.devices
@@ -123,16 +129,36 @@ def mains(tmp_path_factory):
         model.load_state_dict(detnet_from_flax_variables(v["params"], v["batch_stats"]),
                               strict=True)
 
+    jmake, tmake = jtrain.make_detnet_train_step, ttrain.make_detnet_train_step
     mp.setattr(jdetnet.DetNet, "init", recording_init)
-    mp.setattr(jtrain, "make_detnet_train_step", recording(jtrain.make_detnet_train_step, jlosses))
-    mp.setattr(ttrain, "make_detnet_train_step", recording(ttrain.make_detnet_train_step, tlosses))
+    mp.setattr(jtrain, "make_detnet_train_step", recording(jmake, jlosses))
+    mp.setattr(ttrain, "make_detnet_train_step", recording(tmake, tlosses))
     mp.setattr(ttrain, "init_detnet", jax_init)
+    transfer = {}
     try:
         jtrain.main(ARGS + ["--out_dir", str(base / "jax")])
         state = ttrain.main(ARGS + ["--out_dir", str(base / "port"), "--device", "cpu"])
+        encoder = RESNETS["18"]()
+        init_weights(encoder, torch.Generator().manual_seed(1))
+        export_state_dict(encoder, str(base / "encoder.pth"))
+        for arm, pretrain in (("random", None), ("pretrained", str(base / "encoder.pth"))):
+            jl, tl = [], []
+            mp.setattr(jtrain, "make_detnet_train_step", recording(jmake, jl))
+            mp.setattr(ttrain, "make_detnet_train_step", recording(tmake, tl))
+            n = len(inits)
+            mp.setattr(ttrain, "init_detnet", lambda model, seed=0, n=n: model.load_state_dict(
+                detnet_from_flax_variables(inits[n]["params"], inits[n]["batch_stats"]),
+                strict=True))
+            argv = transfer_check.finetune_argv(str(base / f"jax_{arm}"), 2, 16,
+                                                pretrain=pretrain)
+            jtrain.main(argv)
+            argv = transfer_check.finetune_argv(str(base / f"port_{arm}"), 2, 16,
+                                                pretrain=pretrain)
+            ttrain.main(argv + ["--device", "cpu"])
+            transfer[arm] = {"jax": jl, "port": tl}
     finally:
         mp.undo()
-    return {"base": base, "jax": jlosses, "port": tlosses, "state": state}
+    return {"base": base, "jax": jlosses, "port": tlosses, "state": state, "transfer": transfer}
 
 
 def test_train_main_matches_jax(mains):
@@ -160,6 +186,26 @@ def test_train_main_matches_jax(mains):
     tsd = torch.load(base / "port" / "detnet.pth", weights_only=True)
     assert jsd.keys() == tsd.keys()
     assert all(v.dtype == torch.float32 and v.is_contiguous() for v in tsd.values())
+
+
+def test_transfer_check_arms_match_jax(mains):
+    """The transfer check's two fine-tune arms (its argv at 2 steps, B = 16,
+    synthetic-hand, lr 3e-4): from a random init (ULR), and from an encoder
+    export under DLR (--lr_head 3e-4), the first hold of --pretrain <encoder
+    .pth> --lr_strategy DLR against JAX's. Step 0's det_total within rel
+    1e-4 of JAX's and lossH_final (the epoch's mean heatmap loss) within rel
+    2e-3, test_train_main_matches_jax's limits; the metrics' keys."""
+    base = mains["base"]
+    for arm, losses in mains["transfer"].items():
+        assert len(losses["jax"]) == len(losses["port"]) == 2, arm
+        np.testing.assert_allclose(losses["port"][0], losses["jax"][0], rtol=1e-4, err_msg=arm)
+        want = transfer_check.read_metrics(str(base / f"jax_{arm}"))
+        got = transfer_check.read_metrics(str(base / f"port_{arm}"))
+        assert got.keys() == want.keys()
+        np.testing.assert_allclose(got["lossH_final"], want["lossH_final"], rtol=2e-3,
+                                   err_msg=arm)
+    # the export reached the pretrained arm: its step 0 is not the random one's
+    assert mains["transfer"]["pretrained"]["port"][0] != mains["transfer"]["random"]["port"][0]
 
 
 def test_train_resume_cycle(mains, tmp_path):
