@@ -368,6 +368,48 @@
    arm's lossH_final, hm_pck, hm_pck_loose and hm_dist beside the
    reference's XLA-CPU figures on its JPEG route, each part's seconds and
    the phase's.
+24. after 23, BASELINE.json's config #4 and the last tools, under
+   build/config4_<seed>, no cv2 imported and no process of the phase left
+   running at its end. A1: a float32 ResNet-152 ContrastiveModel from
+   ``--seed`` (its running statistics moved by three train-mode forwards)
+   in eval mode on 8 images at 128x128, the card (TF32 off) against the
+   CPU within 1e-4 of the largest output. A2: phase 3's step at ResNet-152
+   (128x128, bf16, B = 256 pairs, simhand_w, LARS, use_pallas) with exact
+   BatchNorm and with stop_grad: step 0's loss and dL/dprojections against
+   the dense route (rel 1e-4; 1e-3 of the largest), 3 steps with finite
+   losses and a parameter change at step 1, #2 and #4 once on every step;
+   both timed in turns (ms/step, pairs/s), each one's peak memory, and a
+   profile of the exact step with #2/#4's device ms and launches a step
+   required. A3: the same step accumulating over 4 micro-batches (no
+   warmup; cuDNN deterministic): the parameters bit for bit unchanged and
+   every BatchNorm running statistic moved after micro-steps 1-3, one
+   update at micro-step 4; the gradient handed to it within rel 1e-5 of
+   each tensor's largest element of the float32 mean of the 4 gradients
+   taken separately from the same starting state; the parameters equal to
+   one update of that gradient bit for bit, and to one update of the mean
+   within 1e-5 of each tensor's largest update element plus lr |dg| / eps
+   (Adam's first step is x / (|x| + eps), whose slope is at most 1 / eps).
+   A4: ``experiments.main`` with RECIPES.md section 2's flags, ResNet-152,
+   B = 256, -accumulate_grad_batches 32, --bn_variant stop_grad,
+   --use_pallas, on phase 3's cache with --device_augment for 64
+   micro-steps: finite losses, #2 and #4 once on every micro-step, the
+   optimizer's updates at micro-steps 32 and 64 alone (8,192 pairs each),
+   the parameters moving at those of them whose learning rate is not 0
+   and at no other micro-step (the recipe's warmup starts at lr 0), and
+   base_lr = lr * sqrt(1024 * 32). The parameters are compared after
+   micro-steps 31, 32, 63 and 64 only, and the card is waited for after 1
+   and 31 and around 32 and 64: ms an accumulation micro-step over 2-31,
+   which hold no check and no wait, and ms of each update micro-step.
+   B1: ``bn_grid.main`` at --seeds 1 --rn50_seed -1
+   --pretrain_steps 20 --finetune_steps 20: two cell lines, no error line,
+   the random arm on the exact cell alone; run again, it starts no cell
+   and adds no line. B2: ``run_int8_quality`` at its defaults (rn18, 150
+   steps, B = 16): every meter finite, fold_f32 against the eval arm within
+   the JAX test's fold-parity gate (hm_pck within 1e-3, epe_mean within
+   1e-5 (1 + epe_mean)); the three arms printed. B3: ``verify_release`` on
+   phase 16's --export_torch file (one entry-point step exports one when
+   phase 16 has not run) gives ok, and exit 1 on a copy with one tensor
+   reshaped. Prints each part's seconds and the phase's.
 
 Any failure ends the run with a non-zero exit code. The last line of the
 output is ``{"ok": true, "device": {...}}``; the line before it is the
@@ -895,16 +937,18 @@ def step_config(**kw):
                                        image_side=float(SIDE), use_pallas=True), **kw})
 
 
-def new_state(seed: int, dtype=None, opt: dict | None = None, **model_kw):
-    """A ResNet-50 ContrastiveModel computing in dtype (bf16 by default; with
-    the encoder options model_kw) and its train state (the optimizer's
-    settings overridden by opt), initialised from seed on the card."""
+def new_state(seed: int, dtype=None, opt: dict | None = None, resnet: str = RESNET,
+              **model_kw):
+    """A ResNet-50 (or ``resnet``) ContrastiveModel computing in dtype (bf16
+    by default; with the encoder options model_kw) and its train state (the
+    optimizer's settings overridden by opt), initialised from seed on the
+    card."""
     import torch
 
     from simhand_tpu_torch.models import ContrastiveModel
     from simhand_tpu_torch.train import OptimizerConfig, create_train_state
 
-    model = ContrastiveModel(RESNET, dtype=dtype or torch.bfloat16, **model_kw)
+    model = ContrastiveModel(resnet, dtype=dtype or torch.bfloat16, **model_kw)
     opt_cfg = OptimizerConfig(**{**dict(train_iters_per_epoch=1000, epochs=100,
                                         warmup_epochs=10), **(opt or {})})
     return create_train_state(model, opt_cfg, seed, input_shape=(2, SIDE, SIDE, 3),
@@ -932,13 +976,13 @@ def run_steps(step, state, batch, what: str, handles=(), steps: int = STEPS):
     return state, losses
 
 
-def in_turns(steps: dict, states: dict, batch, order) -> tuple[dict, dict]:
-    """Times TIMED_STEPS steps of each route in the given order; returns the
-    mean ms/step of each and the blocks, and leaves the stepped states in
+def in_turns(steps: dict, states: dict, batch, order, n: int = TIMED_STEPS) -> tuple[dict, dict]:
+    """Times n steps of each route in the given order; returns the mean
+    ms/step of each and the blocks, and leaves the stepped states in
     ``states``."""
     times = {k: [] for k in steps}
     for route in order:
-        states[route], last, dt = timed(steps[route], states[route], batch, TIMED_STEPS)
+        states[route], last, dt = timed(steps[route], states[route], batch, n)
         require(math.isfinite(last), f"non-finite {route} loss")
         times[route].append(dt * 1e3)
     return {k: sum(v) / len(v) for k, v in times.items()}, times
@@ -5415,6 +5459,507 @@ def workflow_phase(seed: int) -> dict:
     return perf
 
 
+# phase 24, BASELINE.json's config #4 and the last tools, after phase 23.
+# A: ResNet-152 (RN152): its float32 eval forward on the card against the CPU
+# on RN152_CPU_IMAGES images within RN152_CPU_RTOL of the largest output;
+# the pre-training step of phase 3 at RN152 with exact BatchNorm and with
+# stop_grad, RN152_STEPS steps each and RN152_TIMED timed in turns; the same
+# step accumulating over ACCUM_K micro-batches against the update of their
+# averaged gradient; the entry point at the paper's global batch, PAIRS x
+# ENTRY_ACCUM pairs an update, for ENTRY_MICRO_STEPS micro-steps. B: the
+# BatchNorm-variant grid at GRID_ARGS (and again, which must run no cell),
+# the W8A8 quality check at its defaults (fold_f32 against the eval arm
+# within the JAX test's fold-parity gate, FOLD_PCK_GATE and FOLD_EPE_GATE,
+# tests/test_int8_infer.py:274-277), and the release check on an exported
+# encoder and on a copy with one tensor reshaped.
+RN152, RN152_CPU_IMAGES, RN152_CPU_RTOL = "152", 8, 1e-4
+RN152_STEPS, RN152_TIMED = 3, 5
+# the accumulated gradient against the float32 mean of the micro-batches'
+# gradients, relative to each tensor's largest element (the running mean
+# and the mean round differently); the parameters against one update of
+# that mean, every element within ACCUM_GRAD_RTOL of its update's largest
+# element plus lr * |dg| / ADAM_EPS, dg the element's two gradients'
+# difference: Adam's first update is x / (|x| + eps) of the LARS-scaled
+# gradient x (trust <= 1), whose slope is at most 1 / eps, so where the
+# mean cancels to within ~eps of 0 its rounding moves the element by up
+# to the update's size (measured on an H100: 0.85 of the largest element
+# in the worst tensor, 4,359 elements beyond 1e-5 of it)
+ACCUM_K, ACCUM_GRAD_RTOL, ADAM_EPS = 4, 1e-5, 1e-8
+ENTRY_ACCUM, ENTRY_MICRO_STEPS = 32, 64
+RECIPE_FLAGS = ("--experiment_type", "simhand_w", "--weight_type", "linear", "--diff_type",
+                "mpjpe", "--pos_neg", "pos_neg", "--joints_type", "original", "--crop",
+                "--resize", "--rotate", "--color_jitter", "-epochs", "100")
+GRID_ARGS = ("--seeds", "1", "--rn50_seed", "-1", "--pretrain_steps", "20",
+             "--finetune_steps", "20")
+FOLD_PCK_GATE, FOLD_EPE_GATE = 1e-3, 1e-5
+
+
+def rn152_forward_part(seed: int) -> dict:
+    """A1: a float32 ResNet-152 ContrastiveModel from ``seed`` (its running
+    statistics moved by three train-mode forwards) in eval mode on the card
+    (TF32 off) and on the CPU."""
+    import torch
+
+    from simhand_tpu_torch.models import ContrastiveModel
+    from simhand_tpu_torch.train.state import init_weights
+
+    model = ContrastiveModel(RN152)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    model.cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        model.train()
+        for _ in range(3):
+            model(torch.randn(64, SIDE, SIDE, 3, device="cuda", generator=gen))
+        model.eval()
+        x = torch.randn(RN152_CPU_IMAGES, SIDE, SIDE, 3, device="cuda", generator=gen)
+        card = model(x)
+        cpu = copy.deepcopy(model).cpu()(x.cpu())
+    err = {name: float((a.cpu() - b).abs().max() / b.abs().max())
+           for name, a, b in zip(("embedding", "projection"), card, cpu)}
+    print(f"ResNet-152 float32 eval forward, card against CPU ({RN152_CPU_IMAGES} images): "
+          f"{err} of the largest output")
+    require(all(v <= RN152_CPU_RTOL for v in err.values()),
+            f"the ResNet-152 forward on the card differs from the CPU's: {err}")
+    return err
+
+
+def rn152_step_part(seed: int) -> dict:
+    """A2: phase 3's step at ResNet-152 with exact BatchNorm and with
+    stop_grad: step 0 against the dense route, finite losses, a parameter
+    change at step 1, #2 and #4 once a step; both timed in turns, the peak
+    memory of each, a profile of the exact step."""
+    import torch
+
+    from simhand_tpu_torch.losses import ntxent_kernels as K
+    from simhand_tpu_torch.train import make_train_step
+
+    batch, cfg = synthetic_batch(seed), step_config()
+    states, steps, logs, out = {}, {}, {}, {}
+    for variant in ("exact", "stop_grad"):
+        state = new_state(seed, resnet=RN152, bn_stop_gradient_stats=variant == "stop_grad")
+        ref = compare_routes(state, batch, cfg, f"ResNet-152 {variant} step 0")
+        dense = make_train_step(ref.model, dataclasses.replace(cfg, use_pallas=False))
+        ref, dense_loss, _ = timed(dense, ref, batch, 1)
+        del ref, dense
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        logs[variant] = []
+        steps[variant] = launch_counting(make_train_step, K.KERNELS, logs[variant])(
+            state.model, cfg)
+        states[variant], losses = run_steps(steps[variant], state, batch,
+                                            f"ResNet-152 {variant}", steps=RN152_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        require(abs(losses[0] - dense_loss) <= 1e-4 * abs(dense_loss),
+                f"ResNet-152 {variant}: step-0 loss {losses[0]} against the dense route's "
+                f"{dense_loss}")
+        out[variant] = {"losses": losses, "dense_step0_loss": dense_loss,
+                        "peak_gib": peak / 2**30, "held_before_gib": held / 2**30}
+        print(f"ResNet-152 {variant}: losses {losses} (dense step 0 {dense_loss}); peak "
+              f"{peak / 2**30:.2f} GiB, {held / 2**30:.2f} GiB held before the steps")
+    mean_ms, blocks = in_turns(steps, states, batch, ("exact", "stop_grad", "stop_grad", "exact"),
+                               RN152_TIMED)
+    for variant, log in logs.items():
+        launches = [n for n, _ in log]
+        require(all(n["weighted_ntxent_denominator"] == 1 and n["weighted_grad_rows"] == 1
+                    and n["ntxent_denominator"] == n["ntxent_grad"] == 0 for n in launches),
+                f"ResNet-152 {variant}: #2/#4 not once on every step: {launches}")
+        out[variant].update(step_ms=mean_ms[variant], pairs_per_s=PAIRS / mean_ms[variant] * 1e3,
+                            steps_launched=len(launches), blocks=blocks[variant])
+    print(f"ResNet-152 step (B = {PAIRS} pairs, 128², bf16): exact {mean_ms['exact']:.2f} "
+          f"ms/step, {PAIRS / mean_ms['exact'] * 1e3:.1f} pairs/s; stop_grad "
+          f"{mean_ms['stop_grad']:.2f} ms/step, {PAIRS / mean_ms['stop_grad'] * 1e3:.1f} "
+          f"pairs/s (in turns, blocks {blocks}); #2/#4 once on each of "
+          f"{[len(log) for log in logs.values()]} steps")
+    del states["stop_grad"], steps["stop_grad"]
+    out["exact"]["profile"] = profile = profile_steps(steps["exact"], states["exact"], batch)
+    want = 2 * ntxent_launches_a_step("weighted_grad_rows")
+    require(profile["profile_ntxent_launches"] == want,
+            f"the ResNet-152 profile counts {profile['profile_ntxent_launches']} NT-Xent "
+            f"launches a step, not {want} (#2, #4 and their sum passes)")
+    return out
+
+
+def rn152_accumulation_part(seed: int) -> dict:
+    """A3: the step at ResNet-152 accumulating over ACCUM_K micro-batches
+    (no warmup, so the update runs at the base learning rate; cuDNN's
+    deterministic algorithms, so that gradients taken again are the step's):
+    the parameters held bit for bit and the BatchNorm statistics moved
+    after each of the first ACCUM_K - 1, then one update; the gradient the
+    accumulator hands to it against the float32 mean of the ACCUM_K
+    gradients taken separately from the same starting state; the
+    parameters against one update of it (bit for bit) and of that mean
+    (ACCUM_GRAD_RTOL of the largest element plus Adam's slope bound)."""
+    import torch
+
+    from simhand_tpu_torch.losses import ntxent_kernels as K
+    from simhand_tpu_torch.models import contrastive_loss_from_projections
+    from simhand_tpu_torch.train import make_train_step
+    from simhand_tpu_torch.train.loop import running_stats
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        cfg = step_config()
+        state = new_state(seed, resnet=RN152,
+                          opt={"accumulate_grad_batches": ACCUM_K, "warmup_epochs": 0})
+        reference = copy.deepcopy(state)
+        batches = [synthetic_batch(seed + 1 + i) for i in range(ACCUM_K)]
+        handed, update = [], state.optimizer._update
+
+        def recording_update(params, grads):
+            handed.append([g.clone() for g in grads])
+            return update(params, grads)
+
+        state.optimizer._update = recording_update
+        log, held, moved = [], [], []
+        step = launch_counting(make_train_step, K.KERNELS, log)(state.model, cfg)
+        p0 = [p.detach().clone() for p in state.params]
+        for b in batches:
+            before = [s.clone() for s in running_stats(state.model)]
+            state, _ = step(state, b)
+            held.append(all(torch.equal(p, q) for p, q in zip(state.params, p0)))
+            moved.append(all(not torch.equal(s, q)
+                             for s, q in zip(running_stats(state.model), before)))
+        del p0, before
+        losses = [m["contrastive_loss"] for _, m in log]
+        print(f"ResNet-152 accumulation over {ACCUM_K} micro-batches: losses {losses}; "
+              f"parameters held {held}; BatchNorm statistics moved {moved}; launches "
+              f"{[n for n, _ in log]}")
+        require(held == [True] * (ACCUM_K - 1) + [False] and all(moved),
+                f"accumulation: parameters held {held}, statistics moved {moved}")
+        require(len(handed) == 1 and state.optimizer.count == 1
+                and state.optimizer.mini_step == 0,
+                f"accumulation: {len(handed)} updates, count {state.optimizer.count}")
+        require(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
+        require(all(n["weighted_ntxent_denominator"] == n["weighted_grad_rows"] == 1
+                    for n, _ in log), f"#2/#4 not once a micro-step: {log}")
+
+        grads = []
+        for b in batches:
+            reference.model.train()
+            _, proj = reference.model(torch.cat([b["transformed_image1"],
+                                                 b["transformed_image2"]]))
+            loss, _ = contrastive_loss_from_projections(proj, b, cfg)
+            grads.append(torch.autograd.grad(loss, reference.params))
+        mean = [sum(gs) / ACCUM_K for gs in zip(*grads)]
+        del grads
+        names = [n for n, _ in state.model.named_parameters()]
+        # the head's fc1 bias feeds a train-mode BatchNorm: its gradient is 0
+        # up to rounding, with no largest element to be relative to
+        grad_err = {n: float((g - m).abs().max() / m.abs().max().clamp_min(1e-30))
+                    for n, g, m in zip(names, handed[0], mean)
+                    if n != "projection_head.fc1.bias"}
+        worst_grad = max(grad_err, key=grad_err.get)
+        out = {"losses": losses, "grad_rel_worst": grad_err[worst_grad],
+               "grad_rel_worst_tensor": worst_grad}
+        for grad_in, label in ((handed[0], "accumulated"), (mean, "mean")):
+            twin = copy.deepcopy(reference)
+            with torch.no_grad():
+                twin.optimizer._update(twin.params, grad_in)
+            if label == "accumulated":
+                out["params_equal_update_of_accumulated"] = all(
+                    torch.equal(p, q) for p, q in zip(state.params, twin.params))
+                continue
+            lr = state.optimizer.schedule(0)
+            norm_rel, elem_rel, over, unexplained = 0.0, 0.0, 0, 0
+            with torch.no_grad():
+                for p, q, q0, g, m in zip(state.params, twin.params, reference.params,
+                                          handed[0], mean):
+                    d, u = (p - q).double(), (q - q0).double()
+                    norm_rel = max(norm_rel, float(d.norm() / u.norm()))
+                    elem_rel = max(elem_rel, float(d.abs().max() / u.abs().max()))
+                    floor = ACCUM_GRAD_RTOL * u.abs().max()
+                    over += int((d.abs() > floor).sum())
+                    slope = lr * (g - m).abs().double() / ADAM_EPS
+                    unexplained += int((d.abs() > floor + 1.01 * slope).sum())
+            out.update(params_norm_rel_worst=norm_rel, params_elem_rel_worst=elem_rel,
+                       params_elements_over=over, params_elements_unexplained=unexplained)
+            del twin
+        print(f"ResNet-152 accumulation: the accumulated gradient against the float32 mean "
+              f"of the {ACCUM_K} gradients {grad_err[worst_grad]:.3e} of its largest element "
+              f"(worst {worst_grad}); the parameters equal one update of the accumulated "
+              f"gradient: {out['params_equal_update_of_accumulated']}; against one update of "
+              f"the mean: {out['params_norm_rel_worst']:.3e} in norm (worst tensor), "
+              f"{out['params_elem_rel_worst']:.3e} of the largest element, "
+              f"{out['params_elements_over']} elements beyond 1e-5 of it, "
+              f"{out['params_elements_unexplained']} of them beyond lr |dg| / eps more")
+        require(grad_err[worst_grad] <= ACCUM_GRAD_RTOL,
+                f"accumulated gradient {worst_grad} off the mean by {grad_err[worst_grad]}")
+        require(out["params_equal_update_of_accumulated"],
+                "the parameters differ from one update of the accumulated gradient")
+        require(out["params_elements_unexplained"] == 0,
+                f"{out['params_elements_unexplained']} parameters off the update of the mean "
+                f"by more than {ACCUM_GRAD_RTOL} of the largest plus lr |dg| / eps")
+        return out
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def rn152_entry_part(seed: int, base) -> dict:
+    """A4: experiments.main with RECIPES.md section 2's flags at ResNet-152,
+    B = PAIRS, -accumulate_grad_batches ENTRY_ACCUM, --bn_variant stop_grad,
+    on phase 3's cache with --device_augment --use_pallas, for
+    ENTRY_MICRO_STEPS micro-steps: every micro-step's loss, #2/#4 launches,
+    optimizer count and whether the parameters moved."""
+    import torch
+
+    from simhand_tpu_torch import native
+    from simhand_tpu_torch.experiments import main as entry
+    from simhand_tpu_torch.losses import ntxent_kernels as K
+
+    record = []
+    real_make = entry.make_train_step
+    # the parameters are compared with the last copy after these micro-steps
+    # (1-based): unchanged over 1-31 and 33-63, moved at the updates; the
+    # card is waited for after 1 and after 31, so that micro-steps 2-31
+    # run as the entry point runs them, with no check and no wait
+    checked, timed = {ENTRY_ACCUM - 1, ENTRY_ACCUM, 2 * ENTRY_ACCUM - 1, 2 * ENTRY_ACCUM}, {
+        1, ENTRY_ACCUM - 1}
+    updates_at = {ENTRY_ACCUM, 2 * ENTRY_ACCUM}
+    last = {}
+
+    def checking_make(*a, **k):
+        step = real_make(*a, **k)
+
+        def run(state, batch):
+            i = len(record) + 1
+            if i == 1:
+                last["params"] = [p.detach().clone() for p in state.params]
+            if i in updates_at:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            before = {fn.__name__: fn.launches for fn in K.KERNELS}
+            count = state.optimizer.count
+            state, metrics = step(state, batch)
+            rec = {"loss": metrics["contrastive_loss"].detach(),
+                   "launches": {fn.__name__: fn.launches - before[fn.__name__]
+                                for fn in K.KERNELS},
+                   "count": state.optimizer.count,
+                   "lr": state.optimizer.schedule(count) if state.optimizer.count > count
+                   else None}
+            if i in timed | updates_at:
+                torch.cuda.synchronize()
+                rec["t"] = time.perf_counter()
+                if i in updates_at:
+                    rec["update_ms"] = (rec["t"] - t0) * 1e3
+            if i in checked:
+                rec["moved"] = any(not torch.equal(p, q)
+                                   for p, q in zip(last["params"], state.params))
+                last["params"] = [p.detach().clone() for p in state.params]
+            record.append(rec)
+            return state, metrics
+
+        return run
+
+    argv = [*RECIPE_FLAGS, "-sources", "synthetic",
+            "--cache_dir", str(native.BUILD_DIR / f"cache_fed_{seed}"), "--device_augment",
+            "--use_pallas", "-batch_size", str(PAIRS), "-resnet_size", RN152,
+            "-accumulate_grad_batches", str(ENTRY_ACCUM), "--bn_variant", "stop_grad",
+            "--max_steps", str(ENTRY_MICRO_STEPS), "-save_period", "100",
+            "-experiment_name", "rn152_accumulation", "-seed", str(seed),
+            "--resume_path", str(base / "rn152_checkpoints")]
+    t0 = time.perf_counter()
+    entry.make_train_step = checking_make
+    try:
+        state = entry.main(argv, device="cuda")
+    finally:
+        entry.make_train_step = real_make
+    run_s = time.perf_counter() - t0
+    opt_cfg = state.optimizer.cfg
+    require(len(record) == ENTRY_MICRO_STEPS and state.step == ENTRY_MICRO_STEPS,
+            f"the entry point ran {len(record)} micro-steps")
+    updates = [i + 1 for i, r in enumerate(record) if r["lr"] is not None]
+    lrs = [r["lr"] for r in record if r["lr"] is not None]
+    moved = {i + 1: r["moved"] for i, r in enumerate(record) if "moved" in r}
+    losses = [float(r["loss"]) for r in record]
+    first, last_timed = sorted(timed)
+    ms = (record[last_timed - 1]["t"] - record[first - 1]["t"]) / (last_timed - first) * 1e3
+    update_ms = [record[u - 1]["update_ms"] for u in sorted(updates_at)]
+    want_lr = 1e-4 * math.sqrt(1024 * ENTRY_ACCUM)
+    print(f"ResNet-152 entry point (B = {PAIRS} pairs a micro-step, x{ENTRY_ACCUM} = "
+          f"{PAIRS * ENTRY_ACCUM} pairs an update; each micro-step's NT-Xent negatives are its "
+          f"own {2 * PAIRS} images, as in the reference and in JAX): {len(record)} "
+          f"micro-steps in {run_s:.1f} s; {ms:.2f} ms an accumulation micro-step over "
+          f"micro-steps {first + 1}-{last_timed} (no check or wait among them; the epochs of "
+          f"phase 3's cache end every {CACHE_IMAGES // PAIRS} micro-steps, inside the window); "
+          f"update micro-steps {sorted(updates_at)} {[round(v, 2) for v in update_ms]} ms "
+          f"(a wait before and after each); updates at micro-steps {updates} with lr {lrs}; "
+          f"parameters moved after {moved}; base_lr {opt_cfg.base_lr} "
+          f"(lr * sqrt(1024 * {ENTRY_ACCUM}) = {want_lr}); losses first/last "
+          f"{losses[:2]} / {losses[-2:]}")
+    require(all(math.isfinite(v) for v in losses), f"non-finite entry-point losses {losses}")
+    require(all(r["launches"]["weighted_ntxent_denominator"] == 1
+                and r["launches"]["weighted_grad_rows"] == 1
+                and r["launches"]["ntxent_denominator"] == r["launches"]["ntxent_grad"] == 0
+                for r in record), "#2/#4 not once on every micro-step")
+    require(updates == [ENTRY_ACCUM, 2 * ENTRY_ACCUM] and state.optimizer.count == 2,
+            f"the optimizer updated at micro-steps {updates}, not at {ENTRY_ACCUM} and "
+            f"{2 * ENTRY_ACCUM}")
+    # the parameters move at an update whose learning rate is not 0 and at no
+    # other micro-step (the recipe's warmup starts from lr 0)
+    # unchanged over micro-steps 1-31 and 33-63 (compared after 31 and 63
+    # with the copies before 1 and after 32)
+    require(sorted(moved) == sorted(checked)
+            and [u for u, v in moved.items() if v]
+            == [u for u, lr in zip(updates, lrs) if lr != 0.0] and any(moved.values()),
+            f"the parameters moved after {moved}; updates {updates}, lr {lrs}")
+    require(math.isclose(opt_cfg.base_lr, want_lr, rel_tol=1e-12),
+            f"base_lr {opt_cfg.base_lr}, not {want_lr}")
+    return {"micro_steps": len(record), "ms_an_accumulation_micro_step": ms,
+            "update_micro_step_ms": update_ms, "run_s": run_s,
+            "pairs_per_s": PAIRS / ms * 1e3, "updates_at": updates, "update_lrs": lrs,
+            "params_moved_after": moved, "base_lr": opt_cfg.base_lr, "losses": losses,
+            "launches_a_micro_step": {k: sorted({r["launches"][k] for r in record})
+                                      for k in record[0]["launches"]}}
+
+
+def grid_part(base) -> dict:
+    """B1: the grid at GRID_ARGS, then again: two cell lines, no error line,
+    the random arm on the exact cell alone; the second run starts no cell
+    and adds no line."""
+    import contextlib
+    import io
+
+    from simhand_tpu_torch import bn_grid
+
+    out = base / "bn_grid.jsonl"
+    argv = [*GRID_ARGS, "--out", str(out), "--workdir", str(base / "grid_cells"),
+            "--device", "cuda"]
+    started, runs = [], []
+
+    def counting_runner(*a):
+        started.append(list(a[0]))
+        return bn_grid.run_cell(*a)
+
+    for _ in range(2):
+        t0 = time.perf_counter()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            summary = bn_grid.main(argv, cell_runner=counting_runner)
+        print(text.getvalue().strip())
+        lines = [json.loads(line) for line in text.getvalue().splitlines() if line.strip()]
+        runs.append({"seconds": time.perf_counter() - t0, "started": len(started),
+                     "errors": [line for line in lines if "error" in line],
+                     "records": bn_grid.read_records(str(out)), "summary": summary})
+    first, second = runs
+    recs = first["records"]
+    print(f"grid: {first['started']} cells in {first['seconds']:.1f} s, then "
+          f"{second['started'] - first['started']} in {second['seconds']:.1f} s")
+    require(not first["errors"], f"grid cells failed: {first['errors']}")
+    require(len(recs) == 2 and [r["cell"][2] for r in recs] == ["exact", "stop_grad"],
+            f"grid: {recs}")
+    require(recs[0]["random"] is not None and recs[1]["random"] is None,
+            "grid: the random arm not on the exact cell alone")
+    require(all(math.isfinite(v) for r in recs for v in r["pretrained"].values()),
+            f"grid: non-finite metrics {recs}")
+    require(second["started"] == first["started"] == 2 and second["records"] == recs
+            and not second["errors"], "grid: the second run started a cell or added a line")
+    return {"records": recs, "summary": first["summary"],
+            "seconds": [r["seconds"] for r in runs]}
+
+
+def int8_quality_part(base) -> dict:
+    """B2: the W8A8 quality check at its defaults on the card."""
+    from simhand_tpu_torch.int8_quality import run_int8_quality
+
+    t0 = time.perf_counter()
+    res = run_int8_quality(str(base / "int8_quality"), device="cuda")
+    seconds = time.perf_counter() - t0
+    for arm in ("eval", "fold_f32", "int8"):
+        print(f"int8 quality {arm}: {res[arm]}")
+    print(f"int8 quality: {res['int8_sites']} int8 sites; int8 less fold_f32 "
+          f"{res['delta_int8_vs_f32']}; {seconds:.1f} s")
+    require(all(math.isfinite(v) for arm in ("eval", "fold_f32", "int8")
+                for v in res[arm].values()), f"non-finite int8 quality meters {res}")
+    ev, fold = res["eval"], res["fold_f32"]
+    require(abs(ev["hm_pck"] - fold["hm_pck"]) < FOLD_PCK_GATE
+            and abs(ev["epe_mean"] - fold["epe_mean"]) < FOLD_EPE_GATE * (1 + fold["epe_mean"]),
+            f"fold_f32 moves the eval arm's meters: {ev} against {fold}")
+    return {**res, "seconds": seconds}
+
+
+def release_part(seed: int, base) -> dict:
+    """B3: verify_release on phase 16's --export_torch file (exported here by
+    one entry-point step when phase 16 has not run) and on a copy with one
+    tensor reshaped."""
+    import contextlib
+    import io
+
+    import torch
+
+    from simhand_tpu_torch import native, verify_release
+    from simhand_tpu_torch.experiments import main as entry
+
+    export = native.BUILD_DIR / f"entry_point_{seed}" / "resnet50_simhand.pth"
+    if not export.exists():
+        export = base / "resnet50_simhand.pth"
+        entry.main(["--experiment_type", "simhand_w", "--crop", "--resize", "--rotate",
+                    "-sources", "synthetic", "--cache_dir",
+                    str(native.BUILD_DIR / f"cache_fed_{seed}"), "--device_augment",
+                    "-batch_size", str(PAIRS), "-resnet_size", RESNET, "-epochs", "1",
+                    "--max_steps", "1", "-experiment_name", "release_export",
+                    "--export_torch", str(export)], device="cuda")
+    sd = torch.load(export, weights_only=True)
+    sd["layer1.0.conv1.weight"] = torch.zeros(64, 64, 3, 3)
+    corrupt = base / "corrupt.pth"
+    torch.save(sd, corrupt)
+    out = {}
+    for label, path in (("export", export), ("corrupt", corrupt)):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = verify_release.main([str(path)])
+        out[label] = {"rc": rc, **json.loads(text.getvalue().strip().splitlines()[-1])}
+        print(f"release check on the {label} ({path.name}): {out[label]}")
+    require(out["export"] == {"rc": 0, "ok": True, "keys_checked": 318,
+                              "roundtrip_exact": True, "problems": []},
+            f"the release check refused the export: {out['export']}")
+    require(out["corrupt"]["rc"] == 1 and not out["corrupt"]["ok"],
+            f"the release check accepted the corrupt copy: {out['corrupt']}")
+    return out
+
+
+def config4_phase(seed: int) -> dict:
+    """Phase 24: ResNet-152 and gradient accumulation (A1-A4), the grid, the
+    W8A8 quality check and the release check (B1-B3), under
+    build/config4_<seed>."""
+    import importlib
+    import os
+    import shutil
+
+    import torch
+
+    from simhand_tpu_torch import constants, native
+
+    t_phase = time.perf_counter()
+    before = set(processes_below(os.getpid()))
+    base = native.BUILD_DIR / f"config4_{seed}"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    os.environ["BASE_PATH"] = str(base / "runs")
+    importlib.reload(constants)
+    perf, seconds = {}, {}
+    for name, part in (("forward", lambda: rn152_forward_part(seed)),
+                       ("step", lambda: rn152_step_part(seed)),
+                       ("accumulation", lambda: rn152_accumulation_part(seed)),
+                       ("entry_point", lambda: rn152_entry_part(seed, base)),
+                       ("grid", lambda: grid_part(base)),
+                       ("int8_quality", lambda: int8_quality_part(base)),
+                       ("release", lambda: release_part(seed, base))):
+        t0 = time.perf_counter()
+        perf[name] = part()
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    left = {pid: cmd for pid, cmd in processes_below(os.getpid()).items() if pid not in before}
+    perf["seconds"] = {**seconds, "phase": time.perf_counter() - t_phase}
+    print(f"phase 24 (ResNet-152, accumulation, grid, W8A8 quality, release check): "
+          f"{perf['seconds']['phase']:.1f} s; by part "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    require(sys.modules.get("cv2") is None, "phase 24 imported cv2")
+    require(not left, f"processes of phase 24 still running at its end: {left}")
+    return perf
+
+
 def processes_below(pid: int) -> dict[int, str]:
     """Every process below ``pid`` (children, theirs, ...) by pid, with its
     command, from the parent links in /proc."""
@@ -5571,6 +6116,7 @@ def main() -> int:
     sharded_perf, sharded_launches = sharded_phase(args.seed)
     mano_perf = mano_side_phase(args.seed)
     workflow_perf = workflow_phase(args.seed)
+    config4_perf = config4_phase(args.seed)
     left = stop_processes_left()
     require(not left, f"processes left running after the phases: {left}")
 
@@ -5585,6 +6131,11 @@ def main() -> int:
             "fsdp_launches_a_rank_a_step": sharded_launches[name],
             **({"entry_point_launches": entry_launches[name]} if name in entry_launches
                and name.startswith("weighted") else {}),
+            **({"resnet152_launches_a_micro_step":
+                config4_perf["entry_point"]["launches_a_micro_step"][name],
+                "resnet152_step_device_ms": config4_perf["step"]["exact"]["profile"][
+                    f"profile_{NTXENT_PROFILE_GROUPS[name][0]}_ms"]}
+               if name.startswith("weighted") else {}),
         })
     for name, shapes in bn_report.items():
         main_row = shapes[f"{BN_MAIN_SHAPE[name]}_bf16"]
@@ -5658,7 +6209,7 @@ def main() -> int:
                       "serving_entry_points": entry_serving_perf,
                       "mining": mining_perf, "loader": loader_perf,
                       "data_parallel": dp_perf, "sharded": sharded_perf, "mano": mano_perf,
-                      "workflow": workflow_perf,
+                      "workflow": workflow_perf, "config4": config4_perf,
                       "phase_19_s": phase_19_s, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
