@@ -40,6 +40,7 @@ from simhand_tpu_torch.data.augment_cv2 import (
     AugmentParams,
     HostAugmenter,
 )
+from simhand_tpu_torch.utils import trace
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -337,26 +338,31 @@ def batch_iterator(
                 done[b] = batch
                 done_lock.notify_all()
 
+    # the consuming thread's work with the queue (starting the workers,
+    # waiting for each batch and handing out the next index, stopping them)
+    # is the span simhand.feed.queue
     threads = [
         threading.Thread(target=worker, daemon=True) for _ in range(n_workers)
     ]
-    for t in threads:
-        t.start()
     issued = min(nb, window)
-    for b in range(issued):
-        work.put(b)
+    with trace.span("simhand.feed.queue"):
+        for t in threads:
+            t.start()
+        for b in range(issued):
+            work.put(b)
 
     try:
         for b in range(nb):
-            with done_lock:
-                while b not in done:
-                    if errors:
-                        raise errors[0]
-                    done_lock.wait()
-                batch = done.pop(b)
-            if issued < nb:
-                work.put(issued)
-                issued += 1
+            with trace.span("simhand.feed.queue"):
+                with done_lock:
+                    while b not in done:
+                        if errors:
+                            raise errors[0]
+                        done_lock.wait()
+                    batch = done.pop(b)
+                if issued < nb:
+                    work.put(issued)
+                    issued += 1
             yield batch
         with done_lock:
             if errors:
@@ -364,13 +370,14 @@ def batch_iterator(
     finally:
         # an abandoned generator must not leave workers running in native
         # code when the interpreter exits: drain, send exit sentinels, join
-        stop.set()
-        try:
-            while True:
-                work.get_nowait()
-        except queue.Empty:
-            pass
-        for _ in threads:
-            work.put(None)
-        for t in threads:
-            t.join(timeout=10)
+        with trace.span("simhand.feed.queue"):
+            stop.set()
+            try:
+                while True:
+                    work.get_nowait()
+            except queue.Empty:
+                pass
+            for _ in threads:
+                work.put(None)
+            for t in threads:
+                t.join(timeout=10)

@@ -7,7 +7,9 @@ batch n computes. The consumer's stream waits on the copy's event (the host
 does not), and the device tensors are recorded on the consumer's stream so
 the allocator keeps them until the consumer's work on them is done. A
 pinned buffer is filled again only after its last copy's event has
-completed.
+completed. The spans ``simhand.feed.slot_wait``, ``.pin`` and ``.h2d`` and
+the counters ``feed.batches`` and ``feed.h2d_bytes`` (``utils/trace.py``)
+mark those phases on the card's route.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from simhand_tpu_torch.device import resolve_device
+from simhand_tpu_torch.utils import trace
 
 
 class _Slot:
@@ -29,13 +32,15 @@ class _Slot:
 
     def fill(self, batch: dict) -> dict[str, torch.Tensor]:
         if self.copied is not None:
-            self.copied.synchronize()       # the last copy out of these buffers
-        for k, v in batch.items():
-            t = torch.from_numpy(np.asarray(v))
-            buf = self.host.get(k)
-            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
-                buf = self.host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            buf.copy_(t)
+            with trace.span("simhand.feed.slot_wait"):
+                self.copied.synchronize()   # the last copy out of these buffers
+        with trace.span("simhand.feed.pin"):
+            for k, v in batch.items():
+                t = torch.from_numpy(np.asarray(v))
+                buf = self.host.get(k)
+                if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                    buf = self.host[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                buf.copy_(t)
         return {k: self.host[k] for k in batch}
 
 
@@ -57,10 +62,11 @@ def device_prefetch(iterator, device=None, depth: int = 2) -> Iterator[dict]:
     def put(n: int, batch: dict):
         slot = slots[n % depth]
         host = slot.fill(batch)
-        with torch.cuda.stream(stream):
+        with trace.span("simhand.feed.h2d"), torch.cuda.stream(stream):
             out = {k: t.to(dev, non_blocking=True) for k, t in host.items()}
             slot.copied = torch.cuda.Event()
             slot.copied.record(stream)
+        trace.add("feed.h2d_bytes", sum(t.nbytes for t in host.values()))
         return out, slot.copied
 
     def take(item):
@@ -69,6 +75,7 @@ def device_prefetch(iterator, device=None, depth: int = 2) -> Iterator[dict]:
         consumer.wait_event(copied)
         for t in out.values():
             t.record_stream(consumer)
+        trace.add("feed.batches")
         return out
 
     for n, batch in enumerate(iterator):

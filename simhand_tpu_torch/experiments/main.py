@@ -42,8 +42,10 @@ Where it departs from the JAX package:
     same;
   * the sample-pair figure is drawn only when the logger has a sink that
     takes figures;
-  * ``--profile_dir`` records ``torch.profiler`` and writes a Chrome trace
-    there, in place of ``jax.profiler``;
+  * ``--profile_dir`` records ``torch.profiler`` over the run's first
+    ``PROFILE_STEPS`` steps (fewer if the run ends first) and writes a
+    Chrome trace there, ``trace.json``, in place of ``jax.profiler``; the
+    step's phases are its ``simhand.step.*`` spans;
   * ``--fsdp`` on one device does nothing, as JAX's does there (it needs a
     mesh); with ``WORLD_SIZE > 1`` every ``--bn_variant`` runs under it,
     the fused ones with their kernels' sums all-reduced over the ranks;
@@ -103,6 +105,9 @@ from simhand_tpu_torch.utils.logging import (
 )
 
 logger = logging.getLogger("simhand_tpu_torch")
+
+#: steps ``--profile_dir`` records, from the run's first
+PROFILE_STEPS = 10
 
 # README-documented aliases the reference's get_model never handled
 EXPERIMENT_ALIASES = {"handclr": "simhand", "handclr_w": "simhand_w", "simhand-v0": "simhand"}
@@ -406,7 +411,13 @@ def _run(args, dev: torch.device, axis):
         activities = [torch.profiler.ProfilerActivity.CPU]
         if dev.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
-        profiler = torch.profiler.profile(activities=activities)
+        def export(prof) -> None:
+            os.makedirs(args.profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+
+        profiler = torch.profiler.profile(
+            activities=activities, on_trace_ready=export,
+            schedule=torch.profiler.schedule(wait=0, warmup=0, active=PROFILE_STEPS, repeat=1))
         profiler.start()
 
     # ---------------- train loop ----------------
@@ -431,6 +442,7 @@ def _run(args, dev: torch.device, axis):
             if stop:
                 break
             epoch_losses = []
+            epoch_steps = 0
             t_epoch = time.time()
             weights = (
                 source.sample_weights() if hasattr(source, "sample_weights") else None
@@ -445,6 +457,9 @@ def _run(args, dev: torch.device, axis):
                 for batch_idx, batch in enumerate(prefetch_iter):
                     state, metrics = step_fn(state, batch)
                     global_step += 1
+                    epoch_steps += 1
+                    if profiler is not None:
+                        profiler.step()
                     if (batch_idx == 4 and epoch % 5 == 0 and metric_logger is not None
                             and metric_logger.takes_figures):
                         # the sample-pair figure every few epochs; under
@@ -512,8 +527,8 @@ def _run(args, dev: torch.device, axis):
                 mean_loss = float(metrics["contrastive_loss"])
             dt = time.time() - t_epoch
             logger.info(
-                "epoch %d: contrastive_loss %.5f (%.1fs, %.1f img/s)",
-                epoch, mean_loss, dt, batch_size * max(len(epoch_losses), 1) / dt,
+                "epoch %d: contrastive_loss %.5f (%.1fs, %.1f pairs/s)",
+                epoch, mean_loss, dt, batch_size * epoch_steps / dt,
             )
             log_metrics({"contrastive_loss_epoch": mean_loss}, global_step)
             if n_val > 0:
@@ -556,9 +571,7 @@ def _run(args, dev: torch.device, axis):
 
     manager.wait()
     if profiler is not None:
-        profiler.stop()
-        os.makedirs(args.profile_dir, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
+        profiler.stop()         # exports here if the run ended inside the window
 
     if args.export_torch:
         with gathered(state):

@@ -2,6 +2,9 @@
 ``simhand_tpu/native/__init__.py``): ``csrc/batch_gather.cpp``, built with
 ``g++`` at first use by ``native`` and called through ``ctypes``.
 
+Each call adds the bytes it wrote and its nanoseconds inside the library to
+the ``gather.bytes`` and ``gather.busy_ns`` counters (``utils/trace.py``).
+
 It is host code and runs on every machine. Without a compiler it raises:
 the JAX package's numpy fallback is not kept. Every index, shape and
 buffer is checked here before a pointer goes to the library.
@@ -9,10 +12,12 @@ buffer is checked here before a pointer goes to the library.
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 
 from simhand_tpu_torch import native
+from simhand_tpu_torch.utils import trace
 
 
 def _lib() -> ctypes.CDLL:
@@ -29,6 +34,11 @@ def _lib() -> ctypes.CDLL:
         ]
         lib.gather_records_sharded.restype = None
     return lib
+
+
+def _count(nbytes: int, ns: int) -> None:
+    trace.add("gather.bytes", nbytes)
+    trace.add("gather.busy_ns", ns)
 
 
 def _contiguous(a: np.ndarray, what: str) -> np.ndarray:
@@ -57,8 +67,11 @@ def gather_records(src: np.ndarray, indices, out: np.ndarray | None = None) -> n
     _in_range(idx, len(src), "indices")
     dst = _out(out, len(idx), src.shape[1:], src.dtype)
     record_size = int(np.prod(src.shape[1:])) * src.dtype.itemsize
-    _lib().gather_records(src.ctypes.data, idx.ctypes.data, len(idx), record_size,
-                          dst.ctypes.data)
+    lib = _lib()
+    t = time.perf_counter_ns()
+    lib.gather_records(src.ctypes.data, idx.ctypes.data, len(idx), record_size,
+                       dst.ctypes.data)
+    _count(len(idx) * record_size, time.perf_counter_ns() - t)
     return dst
 
 
@@ -82,6 +95,9 @@ def gather_records_sharded(shards: list, shard_ids, rows,
     dst = _out(out, len(rows), first.shape[1:], first.dtype)
     record_size = int(np.prod(first.shape[1:])) * first.dtype.itemsize
     srcs = (ctypes.c_void_p * len(arrs))(*[a.ctypes.data for a in arrs])
-    _lib().gather_records_sharded(srcs, shard_ids.ctypes.data, rows.ctypes.data, len(rows),
-                                  record_size, dst.ctypes.data)
+    lib = _lib()
+    t = time.perf_counter_ns()
+    lib.gather_records_sharded(srcs, shard_ids.ctypes.data, rows.ctypes.data, len(rows),
+                               record_size, dst.ctypes.data)
+    _count(len(rows) * record_size, time.perf_counter_ns() - t)
     return dst

@@ -5,7 +5,10 @@ The step updates the model and the optimizer state in place and returns
 the state with its metrics as tensors on the device: nothing in it waits
 for the card. With ``augment=(flags, params, out_size)`` it takes a raw
 batch (uint8 crops and joints, ``data.pipeline.PretrainDataset.raw_batch``
-moved to the card) and augments both views on the card first.
+moved to the card) and augments both views on the card first. Its phases
+are the spans ``simhand.step.augment``, ``.forward``, ``.loss``,
+``.backward`` and ``.optimizer`` (``utils/trace.py``); the data-parallel
+means lie outside them.
 
 With an ``axis`` each rank takes its rows of the global batch, the loss is
 the global-batch loss, the gradients are pmean'd over the ranks before the
@@ -26,6 +29,7 @@ from simhand_tpu_torch.models.contrastive import (
     contrastive_loss_from_projections,
     projection_stats,
 )
+from simhand_tpu_torch.utils import trace
 
 #: the fixed seed of the evaluation's augmentation (distinct from the train
 #: step's (0, step) stream): every evaluation sees the same views
@@ -83,19 +87,24 @@ def make_train_step(model, cfg: ContrastiveConfig, augment=None, axis=None) -> C
     def train_step(state, batch):
         _check_state(state, model)
         if augment is not None:
-            batch = _augmented(batch, augment, 0, state.step, *_rank_key(axis))
-        model.train()
-        _, proj = model(_images(batch))
-        loss, _ = contrastive_loss_from_projections(proj, batch, cfg, axis)
-        params = state.params
-        grads = torch.autograd.grad(loss, params)
+            with trace.span("simhand.step.augment"):
+                batch = _augmented(batch, augment, 0, state.step, *_rank_key(axis))
+        with trace.span("simhand.step.forward"):
+            model.train()
+            _, proj = model(_images(batch))
+        with trace.span("simhand.step.loss"):
+            loss, _ = contrastive_loss_from_projections(proj, batch, cfg, axis)
+        with trace.span("simhand.step.backward"):
+            params = state.params
+            grads = torch.autograd.grad(loss, params)
         if axis is not None:
             grads = pmean_tensors(axis, list(grads))
             stats = running_stats(model)
             with torch.no_grad():
                 for s, m in zip(stats, pmean_tensors(axis, stats)):
                     s.copy_(m)
-        state.optimizer.step(params, grads)
+        with trace.span("simhand.step.optimizer"):
+            state.optimizer.step(params, grads)
         state.step += 1
         metrics = {"contrastive_loss": loss.detach()}
         if cfg.experiment_type in _EQUIVARIANT:

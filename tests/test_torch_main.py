@@ -250,7 +250,7 @@ def test_fault_injected_preemption_checkpoints_and_exits(runs):
 
 def test_vis_dump_profile_and_registry(runs):
     """--vis/--vis_save_dir writes the per-iteration npy of the pair;
-    --profile_dir a Chrome trace; -meta_file the registry row; --debug the
+    --profile_dir a Chrome trace holding the step's phase spans; -meta_file the registry row; --debug the
     debug log."""
     vis_dir = runs / "vis"
     port_main(runs, "-epochs", "1", "--max_steps", "1", "--vis", "--vis_save_dir", str(vis_dir),
@@ -263,6 +263,10 @@ def test_vis_dump_profile_and_registry(runs):
     assert dump["transformed_image1"].shape == (B, SIDE, SIDE, 3)
     trace = json.loads((runs / "prof" / "trace.json").read_text())
     assert trace["traceEvents"]
+    # the host route's step: its four phases, once each (no augment span)
+    spans = [e["name"] for e in trace["traceEvents"] if e.get("name", "").startswith("simhand.step.")]
+    assert spans == ["simhand.step.forward", "simhand.step.loss", "simhand.step.backward",
+                     "simhand.step.optimizer"]
     assert (runs / "meta.csv").read_text().splitlines()[1].startswith("vis,k1,")
     assert (runs / "runs" / "meta" / "debug" / "vis.log").exists()
     logging.getLogger("simhand_tpu_torch.debug.vis").handlers.clear()
