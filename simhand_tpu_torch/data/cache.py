@@ -105,12 +105,13 @@ class CachedHand100MSource:
     def __len__(self) -> int:
         return self.n
 
-    def gather_crops(self, indices) -> np.ndarray:
+    def gather_crops(self, indices, out: np.ndarray | None = None) -> np.ndarray:
         """Batch crop assembly: (len(indices), C, C, 3) uint8 by one
-        multithreaded native call across all shards."""
+        multithreaded native call across all shards, into ``out`` where
+        given."""
         idx = np.asarray(indices, np.int64)
         return gather_records_sharded(
-            self.shards, idx // self.shard_size, idx % self.shard_size
+            self.shards, idx // self.shard_size, idx % self.shard_size, out
         )
 
     def __getitem__(self, idx: int) -> dict:

@@ -34,6 +34,7 @@ import torch
 
 from simhand_tpu_torch.core import geometry
 from simhand_tpu_torch.core.joints import CHILD_JOINT, PARENT_JOINT
+from simhand_tpu_torch.data import staging
 from simhand_tpu_torch.data.augment_cv2 import (
     AppliedParams,
     AugmentFlags,
@@ -172,10 +173,13 @@ class PretrainDataset:
             "T": T.astype(np.float32),
         }
 
-    def raw_batch(self, indices) -> dict | None:
+    def raw_batch(self, indices, stage=None) -> dict | None:
         """A raw pair batch straight off a packed cache source (the native
         gather; no per-sample Python), or None when the source has no
-        ``gather_crops``."""
+        ``gather_crops``. ``stage``, given the batch's layout ({key: (shape,
+        dtype)}), gives the arrays to write it into, or None
+        (``data.staging.StagingPool.take``); without them the arrays are
+        new."""
         src = self.source
         if not hasattr(src, "gather_crops"):
             return None
@@ -184,18 +188,29 @@ class PretrainDataset:
             pos = src.positive_idx[idx]
         else:
             pos = idx
+        n, c = len(idx), src.crop_size
+        crops = ((n, c, c, 3), np.uint8)
+        joints = ((n, *src.joints3d.shape[1:]), np.float32)
+        raw = ((n, *src.joints_raw.shape[1:]), src.joints_raw.dtype)
+        layout = {"image1": crops, "image2": crops, "joints1": joints, "joints2": joints,
+                  "joints_raw1": raw, "joints_raw2": raw}
+        out = (stage(layout) if stage else None) or {}
 
-        def to_25d(j):
+        def to_25d(key, rows):
             # the cache sources are Hand100M crops: identity K, as raw_pair
-            return convert_to_2_5d_np(np.eye(3), j)
+            j = convert_to_2_5d_np(np.eye(3), src.joints3d[rows])
+            if key not in out:
+                return j
+            np.copyto(out[key], j)
+            return out[key]
 
         return {
-            "image1": src.gather_crops(idx),
-            "image2": src.gather_crops(pos),
-            "joints1": to_25d(src.joints3d[idx]),
-            "joints2": to_25d(src.joints3d[pos]),
-            "joints_raw1": src.joints_raw[idx],
-            "joints_raw2": src.joints_raw[pos],
+            "image1": src.gather_crops(idx, out.get("image1")),
+            "image2": src.gather_crops(pos, out.get("image2")),
+            "joints1": to_25d("joints1", idx),
+            "joints2": to_25d("joints2", pos),
+            "joints_raw1": np.take(src.joints_raw, idx, axis=0, out=out.get("joints_raw1")),
+            "joints_raw2": np.take(src.joints_raw, pos, axis=0, out=out.get("joints_raw2")),
         }
 
     def raw_pair(self, idx: int) -> dict:
@@ -291,7 +306,11 @@ def batch_iterator(
     same seed and epoch: raw pair batches (``raw=True``) or host-augmented
     ones. cv2 releases the GIL in its hot loops, so threads overlap the
     host route's work. With ``sample_weights``, indices are drawn with
-    replacement (the reference's weighted sampler over a concat)."""
+    replacement (the reference's weighted sampler over a concat).
+
+    Where a card can page-lock memory, the raw batches are gathered into the
+    process's staging pool (``data.staging``), and each batch holds its
+    block until the batch is freed."""
     n = len(dataset)
     rng_order = np.random.default_rng([seed, epoch])
     if sample_weights is not None:
@@ -305,7 +324,10 @@ def batch_iterator(
     if raw:
         # raw batches are assembled by the OpenMP gather across all cores;
         # more than two iterator threads on top oversubscribe the host
+        # (data/staging.py's LIMIT counts on two at most)
         num_threads = min(num_threads, 2)
+    pool = staging.shared_pool() if raw else None
+    take = None if pool is None else pool.take
     n_workers = min(num_threads, nb) or 1
     # backpressure: work is issued in a bounded window ahead of the
     # consumer, so at most ~window batches are ever held
@@ -324,7 +346,7 @@ def batch_iterator(
             try:
                 idxs = order[b * batch_size : (b + 1) * batch_size]
                 if raw:
-                    batch = dataset.raw_batch(idxs)
+                    batch = dataset.raw_batch(idxs, take)
                     if batch is None:
                         batch = _collate([dataset.raw_pair(int(i)) for i in idxs])
                 else:
@@ -381,3 +403,5 @@ def batch_iterator(
                 work.put(None)
             for t in threads:
                 t.join(timeout=10)
+            with done_lock:
+                done.clear()             # batches never handed out give back their blocks

@@ -298,7 +298,9 @@ def replicate(axis: Axis, state):
 
 def device_prefetch(iterator, axis: Axis | None, device=None, depth: int = 2):
     """``data.prefetch.device_prefetch`` of this rank's rows of each global
-    batch (every batch whole without an axis)."""
+    batch (every batch whole without an axis). The rows are views of the
+    batch's arrays, so rows of a page-locked batch go to the card as they
+    are."""
     if axis is not None:
         iterator = (shard_batch(axis, {k: np.asarray(v) for k, v in b.items()})
                     for b in iterator)

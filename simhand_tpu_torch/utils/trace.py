@@ -9,10 +9,14 @@ synchronizes, allocates on the device or reads a tensor.
 The counters are integers by name, added to from any thread (the feed's
 worker threads count the gather), under a lock:
 
-  feed.batches     batches the card's prefetch handed to the step
-  feed.h2d_bytes   bytes of the prefetch's copies to the card
-  gather.bytes     bytes of records the native gather wrote
-  gather.busy_ns   nanoseconds inside the native gather, summed over threads
+  feed.batches          batches the card's prefetch handed to the step
+  feed.h2d_bytes        bytes of the prefetch's copies to the card
+  feed.pinned_batches   batches the card's prefetch sent straight from
+                        page-locked staging, with no copy on the step's thread
+  feed.staging_allocs   page-locked blocks the staging pool allocated
+                        (``data/staging.py``)
+  gather.bytes          bytes of records the native gather wrote
+  gather.busy_ns        nanoseconds inside the native gather, summed over threads
 
 Spans are named ``simhand.<layer>.<phase>``: ``simhand.feed.queue``,
 ``.slot_wait``, ``.pin``, ``.h2d`` in ``data/pipeline.py`` and

@@ -159,10 +159,10 @@ def test_batch_iterator_shuts_down_when_abandoned(corpus):
     assert not set(threading.enumerate()) - before
 
     class Broken(PretrainDataset):
-        def raw_batch(self, indices):
+        def raw_batch(self, indices, stage=None):
             if 7 in indices:
                 raise RuntimeError("corrupt shard")
-            return super().raw_batch(indices)
+            return super().raw_batch(indices, stage)
 
     broken = Broken(ds.source, "simhand_w", AugmentFlags(**MAIN_FLAGS), AugmentParams())
     with pytest.raises(RuntimeError, match="corrupt shard"):

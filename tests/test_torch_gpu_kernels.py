@@ -688,6 +688,69 @@ def test_prefetched_batches_equal_the_hosts(cuda):
 
 
 @pytest.mark.gpu
+def test_staged_batches_reach_the_card_bit_for_bit(cuda, tmp_path):
+    """``device_prefetch(batch_iterator(..., raw=True))``, a new pair each
+    epoch as experiments/main.py makes them, over 3 epochs of a small cache
+    and then one epoch as one rank's rows, with a consumer slowed on the card
+    and waiting for it, so that the staging pool runs at its bound: every
+    batch on the card equals the host's gather bit for bit, every batch goes
+    straight from page-locked staging, and the pool allocates nothing after
+    the first epoch."""
+    import types
+
+    import numpy as np
+
+    from simhand_tpu_torch.data import staging
+    from simhand_tpu_torch.data.augment_cv2 import AugmentFlags, AugmentParams
+    from simhand_tpu_torch.data.cache import CachedHand100MSource, build_crop_cache
+    from simhand_tpu_torch.data.pipeline import PretrainDataset, batch_iterator
+    from simhand_tpu_torch.data.prefetch import device_prefetch
+    from simhand_tpu_torch.data.sources import SyntheticHandSource
+    from simhand_tpu_torch.parallel import mesh
+    from simhand_tpu_torch.utils import trace
+
+    n, pairs, seed = 512, 32, 2**31 + 11
+    build_crop_cache(SyntheticHandSource(n, side=224, seed=3), str(tmp_path), shard_size=200)
+    ds = PretrainDataset(CachedHand100MSource(str(tmp_path)), "simhand_w",
+                         AugmentFlags(crop=True, resize=True, rotate=True), AugmentParams())
+    per_epoch = n // pairs
+
+    def epoch(e: int, axis=None) -> None:
+        order = np.arange(n)
+        np.random.default_rng([seed, e]).shuffle(order)
+        kept = []
+        for got in mesh.device_prefetch(batch_iterator(ds, pairs, seed=seed, epoch=e, raw=True),
+                                        axis, "cuda"):
+            torch.cuda._sleep(20_000_000)           # ~10 ms of the card's time a step
+            kept.append({k: v.clone() for k, v in got.items()})
+            torch.cuda.current_stream().synchronize()
+        rows = slice(None) if axis is None else slice(pairs // 2, pairs)
+        for b, got in enumerate(kept):
+            want = ds.raw_batch(order[b * pairs:(b + 1) * pairs])
+            for k, v in want.items():
+                assert torch.equal(got[k].cpu(), torch.from_numpy(v[rows])), (e, b, k)
+        assert len(kept) == per_epoch
+
+    before = trace.counters()
+    epoch(0)
+    first = trace.counters()
+    for e in (1, 2):
+        epoch(e)
+    epoch(3, types.SimpleNamespace(size=2, index=1))
+    after = trace.counters()
+    delta = {k: after.get(k, 0) - before.get(k, 0)
+             for k in ("feed.batches", "feed.pinned_batches", "feed.staging_allocs")}
+    pool = staging.shared_pool()
+    print(f"staged on the card: {delta}, allocations after the first epoch "
+          f"{after.get('feed.staging_allocs', 0) - first.get('feed.staging_allocs', 0)}, "
+          f"blocks {pool.blocks} of {pool.limit}, free {pool.free_blocks()}")
+    assert delta["feed.batches"] == delta["feed.pinned_batches"] == 4 * per_epoch
+    assert after.get("feed.staging_allocs", 0) == first.get("feed.staging_allocs", 0)
+    assert 0 < pool.blocks <= staging.LIMIT
+    assert pool.free_blocks() == pool.blocks        # the finished epochs keep none
+
+
+@pytest.mark.gpu
 def test_int8_compute_walk_on_the_card_equals_its_cpu_run(cuda):
     """The W8A8 encoder (ResNet-18 at 64x64, calibrated on the CPU) on the
     card against the same module on the CPU: every int8 activation of the

@@ -76,7 +76,7 @@ class _RawDataset:
     def __len__(self) -> int:
         return len(self.table)
 
-    def raw_batch(self, idxs) -> dict:
+    def raw_batch(self, idxs, stage=None) -> dict:
         return {"rows": self.table[np.asarray(idxs)]}
 
 
@@ -179,10 +179,10 @@ def test_span_under_a_profiler_records_its_range():
     assert not autograd_profiler._is_profiler_enabled
 
 
-@pytest.mark.parametrize("name", ["feed.batches", "feed.h2d_bytes"])
+@pytest.mark.parametrize("name", ["feed.batches", "feed.h2d_bytes", "feed.pinned_batches"])
 def test_prefetch_counts_only_the_cards_route(name):
     """The CPU route of device_prefetch hands batches over without copies:
-    it adds to neither feed counter."""
+    it adds to none of the feed counters."""
     from simhand_tpu_torch.data.prefetch import device_prefetch
 
     before = trace.counters()
